@@ -1,0 +1,45 @@
+"""Model registry (counterpart of ``selfrec_tpu/models/__init__.py``).
+
+Lists every model name of the JAX package, with the same names and YAML
+config sections. Models not ported yet raise ``NotImplementedError``
+pointing at ROADMAP.md, which queues them.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, Optional, Tuple
+
+# name -> (module path or None when not ported yet, class name, model type)
+MODEL_REGISTRY: Dict[str, Tuple[Optional[str], str, str]] = {
+    "MF": (None, "MF", "graph"),
+    "LightGCN": (None, "LightGCN", "graph"),
+    "DirectAU": (None, "DirectAU", "graph"),
+    "SimGCL": ("selfrec_tpu_torch.models.graph.simgcl", "SimGCL", "graph"),
+    "XSimGCL": (None, "XSimGCL", "graph"),
+    "SGL": (None, "SGL", "graph"),
+    "NCL": (None, "NCL", "graph"),
+    "MixGCF": (None, "MixGCF", "graph"),
+    "BUIR": (None, "BUIR", "graph"),
+    "SelfCF": (None, "SelfCF", "graph"),
+    "SSL4Rec": (None, "SSL4Rec", "graph"),
+    "UserKNN": (None, "UserKNN", "graph"),
+    "ItemKNN": (None, "ItemKNN", "graph"),
+    "MHCN": (None, "MHCN", "graph"),
+    "SEPT": (None, "SEPT", "graph"),
+    "SASRec": (None, "SASRec", "sequential"),
+    "CL4SRec": (None, "CL4SRec", "sequential"),
+    "BERT4Rec": (None, "BERT4Rec", "sequential"),
+}
+
+
+def get_model_class(name: str):
+    if name not in MODEL_REGISTRY:
+        raise KeyError(
+            f"Unknown model {name!r}. Available: {sorted(MODEL_REGISTRY)}")
+    module_path, class_name, _ = MODEL_REGISTRY[name]
+    if module_path is None:
+        raise NotImplementedError(
+            f"{name} is not ported to selfrec_tpu_torch yet; ROADMAP.md "
+            "queues it")
+    return getattr(importlib.import_module(module_path), class_name)

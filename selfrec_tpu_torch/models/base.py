@@ -1,0 +1,384 @@
+"""Recommender runtime (counterpart of ``selfrec_tpu/models/base.py:40-696``).
+
+Same template-method pipeline as the reference ``Recommender.execute()``
+(reference/base/recommender.py:73-83: initializing_log →
+print_model_info → build → train → test → evaluate) and the same
+best-by-majority-vote ``fast_evaluation`` bookkeeping
+(base/graph_recommender.py:81-104). The JAX package runs an epoch as one
+jitted ``lax.scan``; here it is a Python loop over batches, each step in the
+order of base.py:502-535: sample negatives, loss and grads, Adam step,
+``step_update``. Everything runs on one explicit ``device``.
+
+Not ported yet: the mesh, checkpoint and profiler hooks (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import os
+from os.path import abspath
+from time import localtime, strftime, time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from selfrec_tpu_torch.data import io
+from selfrec_tpu_torch.data.interaction import Interaction
+from selfrec_tpu_torch.device import resolve_device
+from selfrec_tpu_torch.ops import ranking, sampling
+from selfrec_tpu_torch.utils import metrics
+from selfrec_tpu_torch.utils.logger import Log
+
+
+class Recommender:
+    """Base recommender: config parsing + run pipeline.
+
+    Common hyperparameters mirror reference base/recommender.py:15-21.
+    """
+
+    def __init__(self, conf, training_set, test_set, device=None, **kwargs):
+        self.config = conf
+        self.device = resolve_device(device)
+        self.model_name = conf["model"]["name"]
+        self.ranking_topns = conf["item.ranking.topN"]
+        self.emb_size = int(conf["embedding.size"])
+        self.max_epoch = int(conf["max.epoch"])
+        self.batch_size = int(conf["batch.size"])
+        self.lrate = float(conf["learning.rate"])
+        self.reg = float(conf["reg.lambda"])
+        self.output = conf["output"]
+        self.seed = int(conf.get("seed", 0))
+
+        current_time = strftime("%Y-%m-%d %H-%M-%S", localtime(time()))
+        self.model_log = Log(self.model_name, f"{self.model_name} {current_time}")
+        self.result = []
+        self.rec_output = []
+
+    def initializing_log(self):
+        self.model_log.add("### model configuration ###")
+        for k, v in self.config.config.items():
+            self.model_log.add(f"{k}={v}")
+
+    def print_model_info(self):
+        print("Model:", self.model_name)
+        if self.config.contain("training.set"):
+            print("Training Set:", abspath(self.config["training.set"]))
+        if self.config.contain("test.set"):
+            print("Test Set:", abspath(self.config["test.set"]))
+        print("Device:", self.device)
+        print("Embedding Dimension:", self.emb_size)
+        print("Maximum Epoch:", self.max_epoch)
+        print("Learning Rate:", self.lrate)
+        print("Batch Size:", self.batch_size)
+        print("Regularization Parameter:", self.reg)
+        if self.config.contain(self.model_name):
+            args = self.config[self.model_name]
+            par_str = "  ".join(f"{k}:{v}" for k, v in args.items())
+            print("Specific parameters:", par_str)
+
+    # template methods ------------------------------------------------------
+    def build(self):
+        pass
+
+    def train(self):
+        pass
+
+    def test(self):
+        pass
+
+    def save(self):
+        pass
+
+    def load(self):
+        pass
+
+    def evaluate(self, rec_list):
+        pass
+
+    def execute(self):
+        self.initializing_log()
+        self.print_model_info()
+        print("Initializing and building model...")
+        self.build()
+        print("Training Model...")
+        self.train()
+        print("Testing...")
+        rec_list = self.test()
+        print("Evaluating...")
+        self.evaluate(rec_list)
+        return rec_list
+
+
+class _FastEvalMixin:
+    """Shared fast_evaluation: per-epoch eval at max_N, keep best by
+    majority-of-metrics vote, save() on improvement (reference
+    base/graph_recommender.py:81-104)."""
+
+    def _fast_measure(self):
+        rec_list = self.test()
+        return metrics.ranking_evaluation(
+            self.data.test_set, rec_list, [self.max_N])
+
+    def fast_evaluation(self, epoch: int):
+        print("Evaluating the model...")
+        measure = self._fast_measure()
+        performance = metrics.parse_measure(measure)
+
+        if self.best_performance:
+            count = sum(
+                1 if self.best_performance[1][k] > performance[k] else -1
+                for k in performance
+            )
+            if count < 0:
+                self.best_performance = [epoch + 1, performance]
+                self.save()
+        else:
+            self.best_performance = [epoch + 1, performance]
+            self.save()
+
+        print("-" * 80)
+        print(f"Real-Time Ranking Performance (Top-{self.max_N} Item Recommendation)")
+        measure_str = ", ".join(f"{k}: {v}" for k, v in performance.items())
+        print(f"*Current Performance*\nEpoch: {epoch + 1}, {measure_str}")
+        bp = ", ".join(f"{k}: {v}" for k, v in self.best_performance[1].items())
+        print(f"*Best Performance*\nEpoch: {self.best_performance[0]}, {bp}")
+        print("-" * 80)
+        return measure
+
+
+class GraphRecommender(_FastEvalMixin, Recommender):
+    """Graph (user-item) recommender base with blocked device evaluation."""
+
+    eval_block_size = 1024
+
+    def should_evaluate(self, epoch: int) -> bool:
+        """fast_evaluation cadence. Reference default: EVERY epoch
+        (e.g. SimGCL.py:40)."""
+        return True
+
+    def __init__(self, conf, training_set, test_set, device=None, **kwargs):
+        super().__init__(conf, training_set, test_set, device=device, **kwargs)
+        self.data = Interaction(conf, training_set, test_set)
+        self.best_performance: list = []
+        self.topN = [int(n) for n in self.ranking_topns]
+        self.max_N = max(self.topN)
+        self.user_emb: Optional[torch.Tensor] = None
+        self.item_emb: Optional[torch.Tensor] = None
+        self.best_user_emb = None
+        self.best_item_emb = None
+
+    def print_model_info(self):
+        super().print_model_info()
+        tr = self.data.training_size()
+        te = self.data.test_size()
+        print(
+            f"Training Set Size: (user number: {tr[0]}, item number: {tr[1]}, interaction number: {tr[2]})"
+        )
+        print(
+            f"Test Set Size: (user number: {te[0]}, item number: {te[1]}, interaction number: {te[2]})"
+        )
+        print("=" * 80)
+
+    # evaluation ------------------------------------------------------------
+    def current_embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.user_emb, self.item_emb
+
+    def test(self) -> Dict[str, list]:
+        user_emb, item_emb = self.current_embeddings()
+        return ranking.rec_list_from_embeddings(
+            self.data, user_emb, item_emb, self.max_N,
+            block_size=self.eval_block_size)
+
+    def _fast_measure(self):
+        """Id-array eval: device top-k -> vectorized metrics over int ids,
+        exact-equal to the string path (base.py:226-244)."""
+        user_emb, item_emb = self.current_embeddings()
+        if user_emb is None or item_emb is None:
+            return super()._fast_measure()
+        top_ids = ranking.topk_ids_from_embeddings(
+            self.data, user_emb, item_emb, self.max_N,
+            block_size=self.eval_block_size)
+        offsets, items = self.data.test_gt_csr()
+        return metrics.ranking_evaluation_ids(
+            offsets, items, top_ids, [self.max_N], self.data.item_num,
+            sorted_test_keys=self.data.test_gt_sorted_keys())
+
+    def evaluate(self, rec_list):
+        self.rec_output.append(
+            "userId: recommendations in (itemId, ranking score) pairs, * means the item is hit.\n"
+        )
+        for user in self.data.test_set:
+            line = user + ":" + "".join(
+                f" ({item[0]},{item[1]}){'*' if item[0] in self.data.test_set[user] else ''}"
+                for item in rec_list[user]
+            )
+            self.rec_output.append(line + "\n")
+        current_time = strftime("%Y-%m-%d %H-%M-%S", localtime(time()))
+        out_dir = self.output
+        file_name = f"{self.model_name}@{current_time}-top-{self.max_N}items.txt"
+        io.write_file(out_dir, file_name, self.rec_output)
+        print("The result has been output to ", abspath(out_dir), ".")
+        file_name = f"{self.model_name}@{current_time}-performance.txt"
+        self.result = metrics.ranking_evaluation(self.data.test_set, rec_list, self.topN)
+        self.model_log.add("###Evaluation Results###")
+        self.model_log.add(self.result)
+        io.write_file(out_dir, file_name, self.result)
+        print(f"The result of {self.model_name}:\n{''.join(self.result)}")
+
+
+class TorchGraphRecommender(GraphRecommender):
+    """Shared training machinery for embedding-table graph models, on one
+    device (the single-device counterpart of ``JAXGraphRecommender``).
+
+    Subclasses implement:
+      init_params(generator) -> dict of leaf tensors
+      compute_embeddings(params) -> (user_emb, item_emb)
+      batch_loss(params, batch, generator) -> scalar loss
+    ``params`` is a plain dict of tensors; ``torch.optim.Adam`` stands in
+    for ``optax.adam`` (same defaults: betas (0.9, 0.999), eps 1e-8).
+    """
+
+    n_neg_rounds = 8
+    n_negs = 1  # negatives per positive
+    log_batch_interval = 100
+
+    def __init__(self, conf, training_set, test_set, device=None, **kwargs):
+        super().__init__(conf, training_set, test_set, device=device, **kwargs)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.seed)
+        self._rated_bitmap = None
+        self.params: Optional[Dict[str, torch.Tensor]] = None
+        self.optimizer = None
+        self.aux: Dict[str, Any] = {}
+        self._edges_dev = None
+
+    # -- subclass contract ---------------------------------------------------
+    def init_params(self, generator) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def compute_embeddings(self, params) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def batch_loss(self, params, batch: Dict[str, torch.Tensor], generator):
+        raise NotImplementedError
+
+    def batch_loss_aux(self, params, batch: Dict[str, torch.Tensor], generator):
+        """(loss, new_aux); default: plain batch_loss, aux unchanged."""
+        return self.batch_loss(params, batch, generator), batch["aux"]
+
+    def epoch_setup(self, epoch: int) -> Dict[str, Any]:
+        return {}
+
+    def step_update(self, params, aux, batch: Dict[str, torch.Tensor]):
+        """Post-optimizer per-step aux update; default: aux unchanged."""
+        return aux
+
+    def make_optimizer(self, params: Dict[str, torch.Tensor]):
+        return torch.optim.Adam(list(params.values()), lr=self.lrate,
+                                betas=(0.9, 0.999), eps=1e-8)
+
+    def make_adj(self, scipy_norm_adj=None):
+        """Dense-bipartite device adjacency for the unified Laplacian
+        (``data.norm_adj`` by default)."""
+        from selfrec_tpu_torch.ops.graph import norm_adj_from_scipy
+
+        mat = self.data.norm_adj if scipy_norm_adj is None else scipy_norm_adj
+        return norm_adj_from_scipy(mat, self.data.user_num, device=self.device)
+
+    # -- machinery ------------------------------------------------------------
+    def set_params(self, params: Dict[str, torch.Tensor]):
+        """Install ``params`` (copied to the device as trainable leaves) and a
+        fresh optimizer over them."""
+        self.params = {k: v.detach().to(self.device, torch.float32).clone()
+                       .requires_grad_(True) for k, v in params.items()}
+        self.optimizer = self.make_optimizer(self.params)
+
+    def build(self):
+        self.set_params(self.init_params(self.generator))
+        # packed-bitmap negative sampler when the (U, ceil(I/32)) uint32
+        # bitmap fits the budget (base.py:453-471)
+        if self.data.user_num:
+            words = (self.data.item_num + 31) // 32
+            budget_mb = float(os.environ.get("SELFREC_TPU_NEG_BITMAP_MB", "512"))
+            if self.data.user_num * words * 4 > budget_mb * 1e6:
+                raise NotImplementedError(
+                    "rated bitmap exceeds SELFREC_TPU_NEG_BITMAP_MB; the CSR "
+                    "binary-search sampler is not ported (ROADMAP.md)")
+            self._rated_bitmap = sampling.bitmap_to_device(
+                sampling.pack_rated_bitmap(
+                    self.data.rated_offsets, self.data.rated_items,
+                    self.data.user_num, self.data.item_num), self.device)
+
+    def sample_negatives(self, users: torch.Tensor) -> torch.Tensor:
+        shape = (tuple(users.shape) if self.n_negs == 1
+                 else (users.shape[0], self.n_negs))
+        return sampling.sample_negatives_bitmap(
+            self.generator, users, self._rated_bitmap, self.data.item_num,
+            shape=shape, n_rounds=self.n_neg_rounds)
+
+    def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One step: negatives, loss and grads, Adam, step_update. Returns
+        the loss (a device scalar, detached)."""
+        neg = self.sample_negatives(batch["u"])
+        full_batch = dict(batch, j=neg, aux=self.aux)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, aux = self.batch_loss_aux(self.params, full_batch, self.generator)
+        loss.backward()
+        self.optimizer.step()
+        with torch.no_grad():
+            self.aux = self.step_update(self.params, aux, full_batch)
+        return loss.detach()
+
+    def train_batches(self, users, items, masks) -> torch.Tensor:
+        """Run :meth:`train_step` over (n_batches, batch_size) tensors;
+        returns the (n_batches,) losses on the device."""
+        losses = [self.train_step({"u": u, "i": i, "mask": m})
+                  for u, i, m in zip(users, items, masks)]
+        return torch.stack(losses)
+
+    def epoch_batches(self, epoch: int):
+        """This epoch's shuffled batches, drawn on the device from a generator
+        seeded as a pure function of (seed, epoch)."""
+        if self._edges_dev is None:
+            self._edges_dev = (
+                torch.as_tensor(self.data.edge_users, device=self.device),
+                torch.as_tensor(self.data.edge_items, device=self.device))
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(((self.seed ^ 0x5E1F) << 20) + epoch)
+        return sampling.epoch_pairwise_batches_device(
+            gen, *self._edges_dev, self.batch_size)
+
+    def run_epoch(self, epoch: int) -> np.ndarray:
+        users, items, masks = self.epoch_batches(epoch)
+        self.aux = self.epoch_setup(epoch)
+        return self.train_batches(users, items, masks).cpu().numpy()
+
+    @torch.no_grad()
+    def embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.compute_embeddings(self.params)
+
+    def train(self):
+        n_examples = self.data.n_edges
+        for epoch in range(self.max_epoch):
+            t0 = time()
+            losses = self.run_epoch(epoch)
+            dt = time() - t0
+            for n in range(0, len(losses), self.log_batch_interval):
+                if n > 0:
+                    print("training:", epoch + 1, "batch", n, "batch_loss:", float(losses[n]))
+            print(
+                f"epoch {epoch + 1}: {dt:.2f}s, {n_examples / max(dt, 1e-9):,.0f} examples/s"
+            )
+            self.user_emb, self.item_emb = self.embeddings()
+            if self.should_evaluate(epoch):
+                self.fast_evaluation(epoch)
+        if self.best_user_emb is not None:
+            self.user_emb, self.item_emb = self.best_user_emb, self.best_item_emb
+
+    def save(self):
+        """Snapshot the embeddings fast_evaluation just ranked: train() sets
+        them from the current params right before evaluating, so this is the
+        JAX package's recompute from params without a second propagation."""
+        user_emb, item_emb = self.current_embeddings()
+        self.best_user_emb = user_emb.clone()
+        self.best_item_emb = item_emb.clone()

@@ -1,0 +1,262 @@
+"""Dense-bipartite adjacency propagation (counterpart of
+``selfrec_tpu/ops/spmm_dense.py``).
+
+The symmetric normalized Laplacian every LightGCN-family model propagates
+over is bipartite: its (U+I)x(U+I) matrix has nonzeros only in a (U, I)
+block A and its transpose, so one propagation is
+
+    out_users = A @ x_items        out_items = A.T @ x_users
+
+over ONE stored (U, I) buffer. In the factored mode the buffer is the binary
+incidence B as int8 and the normalization is exact f32 diagonal scalings,
+``A = gain * diag(row_scale) @ B @ diag(col_scale)``.
+
+Matmul modes follow ``SELFREC_TPU_DENSE_DTYPE`` (``bfloat16`` default,
+``float32``, ``int8``) as in the JAX package:
+
+- ``int8`` quantizes each operand per channel to int8 and runs both
+  products through kernel K1 (:mod:`selfrec_tpu_torch.ops.dense_dual`),
+  with the straight-through backward of spmm_dense.py:482-506;
+- the float modes and the generic (arbitrary weight) mode use
+  ``torch.matmul``, as the JAX package left them to XLA outside any kernel.
+  They keep a copy of the block in the matmul dtype (a 4.8 GB f32 copy at
+  yelp2018 scale: use float32 at test sizes).
+
+Not ported yet: the dropout and refactor views and ``DenseMat``
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from selfrec_tpu_torch.ops import dense_dual
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "int8": torch.int8}
+
+
+def _dense_dtype() -> torch.dtype:
+    name = os.environ.get("SELFREC_TPU_DENSE_DTYPE", "bfloat16")
+    if name not in _DTYPES:
+        raise ValueError(f"SELFREC_TPU_DENSE_DTYPE={name!r}; expected one of "
+                         f"{sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def _generic_dtype() -> torch.dtype:
+    """Value-block dtype for NON-factored mode: arbitrary per-edge weights in
+    an int8 block would be garbage, so generic blocks use bf16 under the
+    int8 opt-in (spmm_dense.py:52-58)."""
+    d = _dense_dtype()
+    return torch.bfloat16 if d == torch.int8 else d
+
+
+class DenseAdj:
+    """Bipartite normalized adjacency held as a dense (U, I) block.
+
+    - **factored** (``row_scale is not None``): ``a_ui`` is the binary int8
+      incidence; ``row_scale`` (U,), ``col_scale`` (I,) and the scalar
+      ``gain`` carry the normalization exactly.
+    - **generic** (``row_scale is None``): ``a_ui`` holds arbitrary per-edge
+      weights in a float dtype.
+
+    ``a_mm`` is the block the float matmul modes multiply with (``a_ui``
+    cast once to ``mm_dtype``); None in int8 mode, which feeds ``a_ui`` to
+    the kernel directly."""
+
+    def __init__(self, a_ui, edge_users, edge_items, edge_w, n_users: int,
+                 n_items: int, row_scale=None, col_scale=None, gain=None,
+                 mm_dtype=torch.bfloat16):
+        self.a_ui = a_ui
+        self.edge_users = edge_users
+        self.edge_items = edge_items
+        self.edge_w = edge_w
+        self.row_scale = row_scale
+        self.col_scale = col_scale
+        self.gain = gain
+        self.mm_dtype = mm_dtype
+        self.n_users = n_users
+        self.n_items = n_items
+        self.n_nodes = n_users + n_items
+        if self.factored and mm_dtype != torch.int8:
+            self.a_mm = a_ui.to(mm_dtype)
+        else:
+            self.a_mm = None
+
+    @property
+    def factored(self) -> bool:
+        return self.row_scale is not None
+
+    @property
+    def device(self) -> torch.device:
+        return self.a_ui.device
+
+    def __repr__(self):
+        mode = ("int8-factored" if self.factored else str(self.a_ui.dtype))
+        gb = self.a_ui.numel() * self.a_ui.element_size() / 1e9
+        return (f"DenseAdj(U={self.n_users}, I={self.n_items}, {mode}, "
+                f"mm={self.mm_dtype}, {gb:.2f} GB)")
+
+
+def _try_factor(edge_users, edge_items, w, n_users, n_items):
+    """Detect the symmetric-normalization structure w = 1/sqrt(du*di)
+    (or a constant multiple of it) from the edge weights. Returns
+    (row_scale, col_scale, gain) numpy arrays, or None. Same rules as
+    spmm_dense.py:233-262."""
+    eu = np.asarray(edge_users)
+    ei = np.asarray(edge_items)
+    w = np.asarray(w, dtype=np.float64)
+    if len(w) == 0 or np.any(w <= 0):
+        return None
+    # duplicate (user, item) edges can't be a binary incidence
+    if len(np.unique(eu.astype(np.int64) * (n_items + 1) + ei)) != len(eu):
+        return None
+    du = np.bincount(eu, minlength=n_users).astype(np.float64)
+    di = np.bincount(ei, minlength=n_items).astype(np.float64)
+    ru = 1.0 / np.sqrt(np.maximum(du, 1.0))
+    ci = 1.0 / np.sqrt(np.maximum(di, 1.0))
+    ratio = w / (ru[eu] * ci[ei])
+    gain = float(ratio[0])
+    if np.max(np.abs(ratio - gain)) <= 1e-5 * gain:
+        return (ru.astype(np.float32), ci.astype(np.float32), gain)
+    c = float(w[0])
+    if np.max(np.abs(w - c)) <= 1e-6 * max(abs(c), 1e-30):
+        return (np.ones(n_users, np.float32), np.ones(n_items, np.float32), c)
+    return None
+
+
+def dense_adj_from_edges(edge_users, edge_items, w, n_users: int,
+                         n_items: int, dtype=None, device="cuda") -> DenseAdj:
+    """Build the dense block on ``device`` from (user, item, weight) edges.
+
+    Symmetric-normalized (or constant) weights get the exact int8-factored
+    form; anything else, or an explicit ``dtype``, a generic value block.
+    Duplicate edges SUM in the generic block, like the sparse paths."""
+    device = torch.device(device)
+    eu = torch.as_tensor(np.asarray(edge_users, dtype=np.int64), device=device)
+    ei = torch.as_tensor(np.asarray(edge_items, dtype=np.int64), device=device)
+    w32 = torch.as_tensor(np.asarray(w, dtype=np.float32), device=device)
+    if dtype is None:
+        fac = _try_factor(edge_users, edge_items, w, n_users, n_items)
+        if fac is not None:
+            ru, ci, gain = fac
+            b = torch.zeros((n_users, n_items), dtype=torch.int8, device=device)
+            b[eu, ei] = 1
+            return DenseAdj(b, eu, ei, w32, n_users, n_items,
+                            torch.as_tensor(ru, device=device),
+                            torch.as_tensor(ci, device=device),
+                            torch.tensor(gain, dtype=torch.float32, device=device),
+                            mm_dtype=_dense_dtype())
+        dtype = _generic_dtype()
+    a = torch.zeros((n_users, n_items), dtype=dtype, device=device)
+    a.index_put_((eu, ei), w32.to(dtype), accumulate=True)
+    return DenseAdj(a, eu, ei, w32, n_users, n_items, mm_dtype=dtype)
+
+
+def fits_dense(n_users: int, n_items: int, dtype=None) -> bool:
+    """Whether one dense (n_users, n_items) block of ``dtype`` fits the
+    configured device-memory budget (``SELFREC_TPU_DENSE_BUDGET_GB``,
+    default 5)."""
+    budget_gb = float(os.environ.get("SELFREC_TPU_DENSE_BUDGET_GB", "5"))
+    itemsize = torch.empty((), dtype=dtype or _dense_dtype()).element_size()
+    return n_users * n_items * itemsize <= budget_gb * 1e9
+
+
+def bipartite_blocks(coo, n_users: int):
+    """Split a unified (U+I)x(U+I) COO Laplacian into bipartite (u, i, w)
+    edge arrays, or None if any nonzero lives in a diagonal block or the
+    lower block is not the upper block's transpose (spmm_dense.py:389-422)."""
+    row, col, dat = coo.row, coo.col, coo.data
+    upper = (row < n_users) & (col >= n_users)
+    lower = (row >= n_users) & (col < n_users)
+    if not np.all(upper | lower):
+        return None
+    eu = row[upper].astype(np.int32)
+    ei = (col[upper] - n_users).astype(np.int32)
+    w = dat[upper].astype(np.float32)
+    lu = col[lower].astype(np.int32)
+    li = (row[lower] - n_users).astype(np.int32)
+    lw = dat[lower].astype(np.float32)
+    if len(lu) != len(eu):
+        return None
+    ku = np.lexsort((ei, eu))
+    kl = np.lexsort((li, lu))
+    if not (np.array_equal(eu[ku], lu[kl]) and np.array_equal(ei[ku], li[kl])
+            and np.array_equal(w[ku], lw[kl])):
+        return None
+    return eu, ei, w
+
+
+def _quant_per_channel(y: torch.Tensor):
+    """Symmetric per-channel (per-D-column) int8 quantization.
+
+    scale_d = max|y[:, d]| / 127; yq = clip(round(y / scale)) in [-127, 127],
+    rounding half to even like ``jnp.round``. Returns (yq int8, scale f32
+    (1, D)). Zero columns get scale 1."""
+    amax = torch.amax(torch.abs(y), dim=0, keepdim=True)
+    # a tensor divisor: torch on CUDA divides by a Python scalar through its
+    # reciprocal, one ulp off the CPU's (and JAX's) true division
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
+    yq = torch.clamp(torch.round(y / scale), -127, 127).to(torch.int8)
+    return yq, scale
+
+
+def _dense_spmm_int8_apply(adj: DenseAdj, x: torch.Tensor) -> torch.Tensor:
+    """int8 x int8 propagation through kernel K1 (spmm_dense.py:437-479).
+
+    Accumulation is int32 and exact; the only approximation is the
+    per-channel operand quantization."""
+    xu = x[: adj.n_users]
+    xi = x[adj.n_users:]
+    ru = adj.row_scale[:, None] * adj.gain
+    ci = adj.col_scale[:, None]
+    yq, ys = _quant_per_channel(ci * xi)
+    zq, zs = _quant_per_channel(ru * xu)
+    ou_raw, oi_raw = dense_dual.dual_matmul(adj.a_ui, zq, yq)
+    out_u = ru * (ou_raw.to(torch.float32) * ys)
+    out_i = ci * (oi_raw.to(torch.float32) * zs)
+    return torch.cat([out_u, out_i], dim=0).to(x.dtype)
+
+
+class _DenseSpmmInt8(torch.autograd.Function):
+    """The unified Laplacian is symmetric, so the cotangent propagates
+    through the SAME quantized apply; quantization is straight-through
+    (spmm_dense.py:491-503). This is not the exact transpose: the cotangent
+    is quantized too."""
+
+    @staticmethod
+    def forward(ctx, x, adj):
+        ctx.adj = adj
+        return _dense_spmm_int8_apply(adj, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _dense_spmm_int8_apply(ctx.adj, g.contiguous()), None
+
+
+def dense_spmm(adj: DenseAdj, x: torch.Tensor) -> torch.Tensor:
+    """Unified-node-space propagation: x is ((U+I), D) in [users; items]
+    order; returns [A @ x_i ; A.T @ x_u] (spmm_dense.py:509-553).
+
+    Factored: out_u = gain * ru . (B @ (ci . x_i)),
+              out_i = gain * ci . (B' @ (ru . x_u))  (gain folded into ru)."""
+    if adj.factored and adj.mm_dtype == torch.int8:
+        return _DenseSpmmInt8.apply(x, adj)
+    xu = x[: adj.n_users]
+    xi = x[adj.n_users:]
+    if adj.factored:
+        mmd = adj.mm_dtype
+        ru = adj.row_scale[:, None] * adj.gain
+        ci = adj.col_scale[:, None]
+        out_u = ru * torch.matmul(adj.a_mm, (ci * xi).to(mmd)).to(torch.float32)
+        out_i = ci * torch.matmul(adj.a_mm.T, (ru * xu).to(mmd)).to(torch.float32)
+    else:
+        a = adj.a_ui
+        out_u = torch.matmul(a, xi.to(a.dtype)).to(torch.float32)
+        out_i = torch.matmul(a.T, xu.to(a.dtype)).to(torch.float32)
+    return torch.cat([out_u, out_i], dim=0).to(x.dtype)

@@ -1,0 +1,48 @@
+"""Weights cross between the packages unchanged (selfrec_tpu_torch.convert)."""
+
+import jax
+import numpy as np
+import torch
+
+from selfrec_tpu.ops.init import xavier_uniform as jax_xavier
+from selfrec_tpu_torch import convert
+from selfrec_tpu_torch.ops.init import xavier_uniform
+
+
+def _jax_params():
+    ku, ki = jax.random.split(jax.random.PRNGKey(0))
+    return {"user_emb": jax_xavier(ku, (40, 16)), "item_emb": jax_xavier(ki, (60, 16)),
+            "step": jax.numpy.arange(3, dtype=jax.numpy.int32)}
+
+
+def test_params_round_trip_exactly():
+    jp = {k: np.asarray(v) for k, v in _jax_params().items()}
+    tp = convert.params_from_jax(jp)
+    assert set(tp) == set(jp)
+    for k in jp:
+        assert tp[k].numpy().dtype == jp[k].dtype
+        np.testing.assert_array_equal(tp[k].numpy(), jp[k])
+    back = convert.params_to_jax(tp)
+    for k in jp:
+        assert back[k].dtype == jp[k].dtype
+        np.testing.assert_array_equal(back[k], jp[k])
+    # the tensors own their memory: changing one leaves the source alone
+    tp["user_emb"].add_(1.0)
+    assert not np.array_equal(tp["user_emb"].numpy(), jp["user_emb"])
+
+
+def test_round_trip_through_jax_arrays():
+    tp = {"w": torch.linspace(-1, 1, 12).reshape(3, 4)}
+    jp = {k: jax.numpy.asarray(v) for k, v in convert.params_to_jax(tp).items()}
+    again = convert.params_from_jax({k: np.asarray(v) for k, v in jp.items()})
+    assert torch.equal(again["w"], tp["w"])
+
+
+def test_xavier_uniform_has_the_jax_bound_and_shape():
+    """Same distribution as the JAX initialiser (different draws)."""
+    t = xavier_uniform(torch.Generator().manual_seed(0), (400, 64))
+    j = np.asarray(jax_xavier(jax.random.PRNGKey(0), (400, 64)))
+    bound = np.sqrt(6.0 / (400 + 64))
+    assert t.shape == j.shape and t.dtype == torch.float32
+    assert float(t.abs().max()) <= bound and np.abs(j).max() <= bound
+    assert abs(float(t.std()) - float(j.std())) < 0.02 * bound
