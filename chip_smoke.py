@@ -3,29 +3,51 @@
 
     python3 chip_smoke.py
 
-Builds kernel K1 (csrc/dense_dual.cu) from the checkout, then:
+Builds kernels K1 (csrc/dense_dual.cu) and K2 (csrc/ell_gather.cu) from the
+checkout, one nvcc each, started together. Every model runs on the
+yelp2018-scale synthetic graph (31,667 users, 38,048 items, 1,428,306
+training edges) at D = 64 and batch 2048, with random weights from a seed.
 
-1. kernel phase: K1 against its plain torch version on the card, at a ragged
-   small shape and at the yelp2018-scale block (31,668 x 38,048) with D = 64
-   and D = 192; int8 outputs must match exactly. Times the kernel, the plain
-   version and two ``torch._int_mm`` calls (a yardstick the port never
-   calls), and computes each shape's bound from its bytes and operations.
-2. reference phase: on a small synthetic graph, the SimGCL embeddings, one
-   batch loss and the full-rank top-20 lists on the card agree with the
-   same model on the CPU.
-3. train phase: SimGCL in int8x8 mode (D = 64, n_layer = 3, lambda = 0.5,
-   eps = 0.1, batch 2048, the repo's headline configuration) on the
-   yelp2018-scale synthetic graph, through the trainer's step on the first
-   50 batches of an epoch. Losses must be finite and K1 must have launched.
-   Five more steps under torch.profiler then print where a step's device
-   time goes (outside the counted main path).
+SimGCL, int8x8 dense layout (SELFREC_TPU_DENSE=1):
+1. K1 kernel phase: K1 against its plain torch version at a ragged small
+   shape and at the yelp block with D = 64 and D = 192; outputs must match
+   exactly. Times the kernel, the plain version and two ``torch._int_mm``
+   calls (a yardstick the port never calls), and computes each bound.
+2. reference phase: on a small graph, the embeddings, one batch loss and
+   the top-20 lists on the card agree with the same model on the CPU.
+3. train phase: n_layer 3, lambda 0.5, eps 0.1 (the repo's headline
+   configuration), the first 50 batches of an epoch through the trainer's
+   step; finite losses, K1 launched. Five more steps under torch.profiler.
 4. eval phase: compute_embeddings and one fast_evaluation over all test
-   users; K1 must have launched once per layer. One more eval under
-   torch.profiler prints where its device time goes.
+   users; K1 launches once per layer. One more eval under the profiler.
 
-Prints the kernel table as one JSON line, the card's name and power limit,
-and as its last line {"ok": true, "device": {...}}. Any failure raises and
-exits non-zero; without a CUDA device it exits 1 and prints no result.
+SGL (conf/SGL.yaml: n_layer 2, lambda 0.1, drop_rate 0.1, aug_type 1,
+temp 0.2), ELL layout (SELFREC_TPU_DENSE=0), and LightGCN on it:
+5. K2 kernel phase: K2 against its plain version at rtol/atol 2e-5 on two
+   ragged layouts (K 4 and 16, one row spanning many virtual rows), on the
+   yelp unified layout at P = 1 (D 64, f32 and bf16 rows) and on SGL's
+   packed template at P = 3 (D 64 x 3), and exactly on the Mosaic gather
+   probe's case (scripts/probe_mosaic_gather.py: n 256, D 128, K = 1, unit
+   weights). Times the kernel, the plain version and ``torch.sparse.mm``
+   over the same CSR matrices (one call per pass; a yardstick the port
+   never calls), and computes each bound.
+6. reference phase: on a small graph, SGL's ELL arm on the card agrees with
+   the CPU (same weights, keep masks and batch): embeddings, loss, grads
+   and top-20 lists.
+7. train phase: 50 steps of epoch 0 after epoch_setup; finite losses and
+   exactly 4 K2 launches a step (2 hops forward and backward, the three
+   views packed). Five more steps under the profiler.
+8. eval phase: compute_embeddings and one fast_evaluation; K2 launches
+   n_layer times.
+9. LightGCN (n_layer 3) on the ELL layout: 10 steps, 6 K2 launches a step.
+10. SGL's dense int8x8 arm: 10 steps over per-epoch refactored views, 12
+    K1 launches a step.
+
+Every path sets the launch counts to 0 just before it and reads them just
+after. Prints the kernel table as one JSON line, the card's name and power
+limit, and as its last line {"ok": true, "device": {...}}. Any failure
+raises and exits non-zero; without a CUDA device it exits 1 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -40,8 +62,11 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 INT8_OPS_PER_S = 1.979e15   # H100 SXM data sheet, dense int8 tensor rate
+F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 N_TRAIN_BATCHES = 50
+N_SHORT_BATCHES = 10
 N_PROFILE_STEPS = 5
+K2_RTOL = K2_ATOL = 2e-5    # the JAX package's own (tests/test_spmm_pallas.py)
 
 
 def log(msg):
@@ -65,17 +90,22 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def bound(u, i, d):
-    """Least time on the card for (B @ xi, B.T @ xu): each input byte read
-    once, each int32 output written once, 2*2*U*I*D int8 operations."""
-    nbytes = u * i + (u + i) * d + 4 * (u + i) * d
-    ops = 4.0 * u * i * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+def bound_ms(nbytes, ops, ops_per_s):
+    """Least time on the card: bytes over the memory rate or operations over
+    the peak rate, whichever is larger; and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_case(tag, b, d, gen):
-    """Kernel vs plain on one shape; returns its row of the kernel table."""
+def set_layout(dense):
+    """Pin the layout gate: the dense block (1) or the ELL layout (0)."""
+    os.environ["SELFREC_TPU_DENSE"] = "1" if dense else "0"
+
+
+def k1_case(tag, b, d, gen):
+    """K1 vs plain on one shape; returns its row of the kernel table. The
+    bound reads each input byte once, writes each int32 output once and
+    does 2*2*U*I*D int8 operations."""
     import torch
     import torch.nn.functional as F
 
@@ -111,14 +141,138 @@ def kernel_case(tag, b, d, gen):
     library_ms = cuda_ms(lambda: (torch._int_mm(b_pad, xi_pad),
                                   torch._int_mm(bt_pad, xu_pad)), reps=10)
     del b_pad, bt_pad, lib_u, lib_i
-    bound_ms, bound_by = bound(u, i, d)
+    bms, bound_by = bound_ms(u * i + (u + i) * d + 4 * (u + i) * d, 4.0 * u * i * d,
+                             INT8_OPS_PER_S)
     row = {"shape": [u, i, d], "tag": tag, "match": "exact", "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bms, "bound_by": bound_by}
     log(f"[kernel] K1 {tag} U={u} I={i} D={d}: exact, {ms:.4f} ms "
-        f"(bound {bound_ms:.4f} ms by {bound_by}, plain {plain_ms:.3f} ms, "
+        f"(bound {bms:.4f} ms by {bound_by}, plain {plain_ms:.3f} ms, "
         f"_int_mm x2 {library_ms:.4f} ms)")
     return row
+
+
+def k2_case(tag, layout, w, x, exact=False):
+    """K2 vs plain on one layout, weights (P, V, K) and rows x (n, P*D);
+    returns its row of the kernel table. The bound reads vidx, w, x and the
+    row pointer once, writes the f32 output once, and does 2*V*K*P*D f32
+    operations; the gathered-row bytes (V*K rows of P*D values) are printed
+    beside it. The library time is torch.sparse.mm over each pass's CSR
+    matrix of the same nonzeros, in x's dtype."""
+    import torch
+
+    from selfrec_tpu_torch.ops import ell_gather
+
+    p, v, k = w.shape
+    c = x.shape[1]
+    out = ell_gather.ell_gather_sum(layout, w, x)
+    torch.cuda.synchronize()
+    ref = ell_gather.ell_gather_sum_plain(layout, w, x)
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
+    if exact:
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"K2 {tag}: {int((out != ref).sum())} outputs differ "
+                               f"from the plain version, max |err| {err}")
+    elif not torch.allclose(out, ref, rtol=K2_RTOL, atol=K2_ATOL):
+        raise RuntimeError(f"K2 {tag}: differs from the plain version beyond "
+                           f"rtol/atol {K2_RTOL}, max |err| {err}")
+    if not torch.equal(out, ell_gather.ell_gather_sum(layout, w, x)):
+        raise RuntimeError(f"K2 {tag}: two runs on the same inputs differ")
+    del ref
+    ms = cuda_ms(lambda: ell_gather.ell_gather_sum(layout, w, x), reps=20)
+    plain_ms = cuda_ms(lambda: ell_gather.ell_gather_sum_plain(layout, w, x), reps=3)
+
+    rows = layout.vdst.long().repeat_interleave(k)
+    cols = layout.vidx.long()
+    d = c // p
+    mats = []
+    for i in range(p):
+        keep = w[i].reshape(-1) != 0
+        csr = torch.sparse_coo_tensor(
+            torch.stack([rows[keep], cols[keep]]), w[i].reshape(-1)[keep],
+            (layout.n_rows, x.shape[0])).coalesce().to_sparse_csr()
+        mats.append(torch.sparse_csr_tensor(
+            csr.crow_indices(), csr.col_indices(), csr.values().to(x.dtype), csr.shape))
+    xs = [x[:, i * d:(i + 1) * d].contiguous() for i in range(p)]
+
+    def library():
+        return [torch.sparse.mm(m, xi) for m, xi in zip(mats, xs)]
+
+    lib = torch.cat(library(), dim=1).float()
+    tol = 1e-4 if x.dtype == torch.float32 else 2e-2
+    if not torch.allclose(lib, out, rtol=tol, atol=tol):
+        raise RuntimeError(f"K2 {tag}: the torch.sparse.mm yardstick disagrees")
+    library_ms = cuda_ms(library, reps=10)
+    del mats, lib
+    nbytes = (layout.vidx.numel() * 4 + w.numel() * 4 + x.numel() * x.element_size()
+              + layout.row_ptr.numel() * 4 + out.numel() * 4)
+    bms, bound_by = bound_ms(nbytes, 2.0 * v * k * c, F32_OPS_PER_S)
+    gathered = v * k * c * x.element_size()
+    dt = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    row = {"shape": {"V": v, "K": k, "P": p, "D": d, "n_rows": layout.n_rows,
+                     "n_src": x.shape[0], "x": dt},
+           "tag": tag, "match": "exact" if exact else f"rtol/atol {K2_RTOL}",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bms, "bound_by": bound_by, "gathered_bytes": gathered}
+    log(f"[kernel] K2 {tag} V={v} K={k} P={p} D={d} {dt}: max |err| {err:.3g}, "
+        f"{ms:.4f} ms (bound {bms:.4f} ms by {bound_by}, gathered rows "
+        f"{gathered / 1e9:.3f} GB; plain {plain_ms:.3f} ms, sparse.mm x{p} "
+        f"{library_ms:.4f} ms)")
+    return row
+
+
+def ragged_layout(k, n_rows, n_src, gen_np):
+    """A random layout in which row 0 spans 60 virtual rows."""
+    import numpy as np
+
+    from selfrec_tpu_torch.ops.spmm_ell import build_ell_layout
+
+    dst = np.concatenate([np.zeros(60 * k, np.int32),
+                          gen_np.integers(1, n_rows, 40 * n_rows).astype(np.int32)])
+    src = gen_np.integers(0, n_src, len(dst)).astype(np.int32)
+    return build_ell_layout(src, dst, n_rows, k=k, device="cuda")[0]
+
+
+def k2_phase(sgl):
+    """K2's rows: ragged layouts, the yelp unified layout (P = 1, f32 and
+    bf16 rows), SGL's packed template (P = 3) and the gather probe."""
+    import numpy as np
+    import torch
+
+    from selfrec_tpu_torch.ops.spmm_ell import build_ell_layout, ell_weights
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rng = np.random.default_rng(1)
+    rows = []
+    for k, p in ((4, 1), (16, 3)):
+        layout = ragged_layout(k, 5000, 4000, rng)
+        w = torch.rand((p, layout.vdst.shape[0], k), generator=gen, device="cuda")
+        x = torch.randn((4000, p * 64), generator=gen, device="cuda")
+        rows.append(k2_case("ragged", layout, w, x))
+    n = sgl.data.user_num + sgl.data.item_num
+    fwd = sgl.adj.fwd
+    w1 = sgl.adj.w_fwd[None]
+    x1 = torch.randn((n, 64), generator=gen, device="cuda")
+    rows.append(k2_case("yelp", fwd, w1, x1))
+    rows.append(k2_case("yelp", fwd, w1.to(torch.bfloat16).float(), x1.to(torch.bfloat16)))
+    tmpl = sgl._view_template.fwd
+    w3 = ell_weights(tmpl, torch.stack([sgl._w_clean, sgl.aux["w1"], sgl.aux["w2"]]))
+    rows.append(k2_case("yelp packed", tmpl, w3,
+                        torch.randn((n, 192), generator=gen, device="cuda")))
+    # scripts/probe_mosaic_gather.py's case: table[idx], n 256, D 128
+    table = torch.as_tensor(np.random.default_rng(0).normal(size=(256, 128)),
+                            dtype=torch.float32, device="cuda")
+    idx = np.random.default_rng(1).integers(0, 256, size=256).astype(np.int32)
+    probe, _ = build_ell_layout(idx, np.arange(256, dtype=np.int32), 256, k=1,
+                                device="cuda")
+    ones = torch.ones((1, 256, 1), device="cuda")
+    rows.append(k2_case("probe", probe, ones, table, exact=True))
+    from selfrec_tpu_torch.ops.ell_gather import ell_gather_sum
+
+    if not torch.equal(ell_gather_sum(probe, ones, table), table[torch.as_tensor(
+            idx, device="cuda").long()]):
+        raise RuntimeError("K2 probe: the gather differs from table[idx]")
+    return rows
 
 
 def profile_window(tag, fn, n):
@@ -148,20 +302,20 @@ def profile_window(tag, fn, n):
             f"{e.key[:90]}")
 
 
-def graph_conf(name_extra, **top):
+def graph_conf(name, extra, **top):
     from selfrec_tpu_torch.config import ModelConf
 
     conf = {
         "training.set": "<synthetic>",
         "test.set": "<synthetic>",
-        "model": {"name": "SimGCL", "type": "graph"},
+        "model": {"name": name, "type": "graph"},
         "item.ranking.topN": [10, 20],
         "embedding.size": 64,
         "max.epoch": 1,
         "batch.size": 2048,
         "learning.rate": 0.001,
         "reg.lambda": 0.0001,
-        "SimGCL": name_extra,
+        name: extra,
         "output": os.path.join("results", "chip_smoke"),
         "seed": 0,
     }
@@ -169,28 +323,80 @@ def graph_conf(name_extra, **top):
     return ModelConf(conf)
 
 
-def reference_phase():
-    """Small graph: the card's SimGCL agrees with the same weights on the CPU."""
+SIMGCL = {"n_layer": 3, "lambda": 0.5, "eps": 0.1}
+SGL_CONF = {"n_layer": 2, "lambda": 0.1, "drop_rate": 0.1, "aug_type": 1, "temp": 0.2}
+
+
+def check_close(tag, what, a, b, rtol, atol):
     import torch
 
-    from selfrec_tpu_torch.models.graph.simgcl import SimGCL
+    if not torch.allclose(a, b, rtol=rtol, atol=atol):
+        raise RuntimeError(f"{tag}: {what} on the card differs from the CPU by up to "
+                           f"{float((a - b).abs().max())} (rtol {rtol}, atol {atol})")
+
+
+def check_topk_alike(tag, models, ue_cpu, ie_cpu):
+    """Full-rank eval of the same embeddings on both devices. Items with the
+    same neighbourhood get the same embedding, and f32 scores summed in
+    another order may swap near-ties, so the devices may order ties
+    differently: the card's lists must score like the CPU's position by
+    position (float64 rescoring), as they do when they differ only by the
+    order of ties. Returns the share of ids that differ."""
+    import torch
+
     from selfrec_tpu_torch.ops import ranking
+
+    ue, ie = ue_cpu.double(), ie_cpu.double()
+    top = {dev: torch.as_tensor(ranking.topk_ids_from_embeddings(
+               m.data, ue_cpu.to(m.device), ie_cpu.to(m.device), 20))
+           for dev, m in models.items()}
+    uids = torch.as_tensor(models["cpu"].data.test_user_ids).long()
+
+    def rescore(ids):
+        return (ue[uids][:, None, :] * ie[ids]).sum(-1)
+
+    id_off = float((top["cuda"] != top["cpu"]).double().mean())
+    if not torch.allclose(rescore(top["cuda"]), rescore(top["cpu"]), rtol=1e-5, atol=1e-6):
+        raise RuntimeError(f"{tag}: the card's top-20 lists score differently "
+                           f"from the CPU's ({100 * id_off:.2f}% of ids differ)")
+    return id_off, len(uids)
+
+
+def small_pair(cls, conf):
+    """The same model on the CPU and on the card, on a small graph, with the
+    CPU's weights on both."""
     from selfrec_tpu_torch.utils.synth import synth_graph_mapped
 
     train, test = synth_graph_mapped(600, 900, 12000, seed=5)
-    conf = graph_conf({"n_layer": 3, "lambda": 0.5, "eps": 0.1}, **{"batch.size": 256})
-    models = {dev: SimGCL(conf, train, test, device=dev) for dev in ("cpu", "cuda")}
+    models = {dev: cls(conf, train, test, device=dev) for dev in ("cpu", "cuda")}
     for m in models.values():
         m.build()
     models["cuda"].set_params(models["cpu"].params)
+    return models
+
+
+def small_batch(data, gen, nb=256, n_valid=200):
+    import torch
+
+    return {"u": torch.randint(0, data.user_num, (nb,), generator=gen),
+            "i": torch.randint(0, data.item_num, (nb,), generator=gen),
+            "j": torch.randint(0, data.item_num, (nb,), generator=gen),
+            "mask": (torch.arange(nb) < n_valid).float()}
+
+
+def simgcl_reference_phase():
+    """Small graph: the card's SimGCL (int8x8 dense) agrees with the same
+    weights on the CPU."""
+    import torch
+
+    from selfrec_tpu_torch.models.graph.simgcl import SimGCL
+
+    set_layout(dense=True)
+    models = small_pair(SimGCL, graph_conf("SimGCL", SIMGCL, **{"batch.size": 256}))
     gen = torch.Generator().manual_seed(3)
     n = models["cpu"].data.user_num + models["cpu"].data.item_num
     noise = [[torch.rand((n, 64), generator=gen) for _ in range(2)] for _ in range(3)]
-    nb = 256
-    batch = {"u": torch.randint(0, models["cpu"].data.user_num, (nb,), generator=gen),
-             "i": torch.randint(0, models["cpu"].data.item_num, (nb,), generator=gen),
-             "j": torch.randint(0, models["cpu"].data.item_num, (nb,), generator=gen),
-             "mask": (torch.arange(nb) < 200).float()}
+    batch = small_batch(models["cpu"].data, gen)
     out = {}
     for dev, m in models.items():
         with torch.no_grad():
@@ -209,31 +415,141 @@ def reference_phase():
         if float(off.float().mean()) > 1e-3 or worst > 1e-2 * float(b.abs().max()):
             raise RuntimeError(f"reference phase: {what} on the card differs from "
                                f"the CPU in {int(off.sum())} values, by up to {worst}")
-    # full-rank eval of the same embeddings on both devices. Items with the
-    # same neighbourhood get the same embedding (8 of 891 here), and f32
-    # scores summed in another order may swap near-ties, so the devices may
-    # order ties differently: the card's lists must score like the CPU's
-    # position by position (float64 rescoring), as they do when they differ
-    # only by the order of ties
-    ue, ie = out["cpu"][0].double(), out["cpu"][1].double()
-    top = {dev: torch.as_tensor(ranking.topk_ids_from_embeddings(
-               m.data, out["cpu"][0].to(dev), out["cpu"][1].to(dev), 20))
-           for dev, m in models.items()}
-    uids = torch.as_tensor(models["cpu"].data.test_user_ids).long()
-
-    def rescore(ids):
-        return (ue[uids][:, None, :] * ie[ids]).sum(-1)
-
-    id_off = float((top["cuda"] != top["cpu"]).double().mean())
-    if not torch.allclose(rescore(top["cuda"]), rescore(top["cpu"]), rtol=1e-5, atol=1e-6):
-        raise RuntimeError("reference phase: the card's top-20 lists score differently "
-                           f"from the CPU's ({100 * id_off:.2f}% of ids differ)")
-    log(f"[reference] small graph U={models['cpu'].data.user_num} "
+    id_off, n_users = check_topk_alike("reference phase", models, out["cpu"][0],
+                                       out["cpu"][1])
+    log(f"[reference] SimGCL small graph U={models['cpu'].data.user_num} "
         f"I={models['cpu'].data.item_num}: card agrees with the CPU "
         f"(<= 0.1% of values beyond rtol 1e-4 / atol 1e-6), "
         f"loss {float(out['cuda'][2]):.6f} vs {float(out['cpu'][2]):.6f}; "
-        f"top-20 lists of {len(uids)} users score alike ({100 * id_off:.2f}% of "
+        f"top-20 lists of {n_users} users score alike ({100 * id_off:.2f}% of "
         f"ids differ, all within score ties)")
+
+
+def sgl_reference_phase():
+    """Small graph: SGL's ELL arm on the card (K2) agrees with the CPU (K2's
+    plain version) on the same weights, keep masks and batch. f32
+    throughout, sums in another order: embeddings rtol 1e-5 / atol 1e-6,
+    loss rtol 1e-5, grads rtol 1e-4 / atol 1e-7 (the CPU tests' tolerances
+    against the JAX package)."""
+    import torch
+
+    from selfrec_tpu_torch.models.graph.sgl import SGL
+
+    set_layout(dense=False)
+    models = small_pair(SGL, graph_conf("SGL", SGL_CONF, **{"batch.size": 256}))
+    batch = small_batch(models["cpu"].data, torch.Generator().manual_seed(4))
+    out = {}
+    for dev, m in models.items():
+        m.aux = m.epoch_setup(0)
+        with torch.no_grad():
+            ue, ie = m.embeddings()
+        params = {k: v.detach().clone().requires_grad_(True) for k, v in m.params.items()}
+        loss = m.batch_loss(params, dict({k: v.to(m.device) for k, v in batch.items()},
+                                         aux=m.aux))
+        loss.backward()
+        out[dev] = {"user_emb": ue.cpu(), "item_emb": ie.cpu(), "loss": loss.detach().cpu(),
+                    "w1": m.aux["w1"].cpu(), "w2": m.aux["w2"].cpu(),
+                    **{f"grad {k}": v.grad.cpu() for k, v in params.items()}}
+    tol = {"user_emb": (1e-5, 1e-6), "item_emb": (1e-5, 1e-6), "loss": (1e-5, 0.0),
+           "w1": (1e-6, 0.0), "w2": (1e-6, 0.0)}
+    for what, a in out["cuda"].items():
+        rtol, atol = tol.get(what, (1e-4, 1e-7))
+        check_close("SGL reference phase", what, a, out["cpu"][what], rtol, atol)
+    id_off, n_users = check_topk_alike("SGL reference phase", models,
+                                       out["cpu"]["user_emb"], out["cpu"]["item_emb"])
+    log(f"[reference] SGL ELL small graph: card agrees with the CPU (embeddings "
+        f"rtol 1e-5, grads rtol 1e-4), loss {float(out['cuda']['loss']):.6f} vs "
+        f"{float(out['cpu']['loss']):.6f}; top-20 lists of {n_users} users score "
+        f"alike ({100 * id_off:.2f}% of ids differ, all within score ties)")
+
+
+def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0):
+    """The trainer's step over the first ``n_batches`` batches of epoch 0,
+    after epoch_setup, with ``counter`` (a kernel wrapper) set to 0 just
+    before and read just after. Checks finite losses and the launch count
+    (exactly ``per_step`` a step, or at least one). Returns the launches."""
+    import torch
+
+    users, items, masks = model.epoch_batches(0)
+    model.aux = model.epoch_setup(0)
+    m = min(n_batches, users.shape[0] - profile_steps)
+    torch.cuda.synchronize()
+    counter.launches = 0
+    t0 = time.time()
+    first = model.train_batches(users[:1], items[:1], masks[:1])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    rest = model.train_batches(users[1:m], items[1:m], masks[1:m])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    launches = counter.launches
+    losses = torch.cat([first, rest]).cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise RuntimeError(f"{tag} train: non-finite losses {losses.tolist()}")
+    if launches <= 0 or (per_step is not None and launches != per_step * m):
+        raise RuntimeError(f"{tag} train: {launches} kernel launches in {m} steps, "
+                           f"expected {per_step or 'some'} a step")
+    log(f"[train {tag}] {m} batches x {model.batch_size}: loss {float(losses[0]):.6f} -> "
+        f"{float(losses[-1]):.6f}, {t2 - t0:.3f} s, "
+        f"{m * model.batch_size / (t2 - t0):.1f} examples/s (first step "
+        f"{1e3 * (t1 - t0):.1f} ms; steps 2..{m}: {1e3 * (t2 - t1) / (m - 1):.2f} "
+        f"ms/step, {(m - 1) * model.batch_size / (t2 - t1):.1f} examples/s), "
+        f"launches {launches}")
+    if profile_steps:
+        n = profile_steps
+        profile_window(f"train {tag}", lambda: model.train_batches(
+            users[m:m + n], items[m:m + n], masks[m:m + n]), n)
+    return launches
+
+
+def eval_path(tag, model, counter, profile=False):
+    """compute_embeddings plus one fast_evaluation over all test users, with
+    the kernel's count set to 0 just before; it must launch once a layer."""
+    import torch
+
+    from selfrec_tpu_torch.utils import metrics
+
+    torch.cuda.synchronize()
+    counter.launches = 0
+    t0 = time.time()
+    model.user_emb, model.item_emb = model.embeddings()
+    measure = model.fast_evaluation(0)
+    torch.cuda.synchronize()
+    eval_ms = 1e3 * (time.time() - t0)
+    launches = counter.launches
+    ue, ie = model.user_emb, model.item_emb
+    if (tuple(ue.shape) != (model.data.user_num, 64)
+            or tuple(ie.shape) != (model.data.item_num, 64)
+            or not bool(torch.isfinite(ue).all() & torch.isfinite(ie).all())):
+        raise RuntimeError(f"{tag} eval: embeddings of the wrong shape or not finite")
+    if launches != model.n_layers:
+        raise RuntimeError(f"{tag} eval: {launches} kernel launches, expected "
+                           f"{model.n_layers}")
+    perf = metrics.parse_measure(measure)
+    if not all(math.isfinite(v) for v in perf.values()):
+        raise RuntimeError(f"{tag} eval: metrics not finite: {perf}")
+    log(f"[eval {tag}] Recall@20 {perf['Recall']} NDCG@20 {perf['NDCG']}, "
+        f"{eval_ms:.1f} ms, launches {launches}")
+    if profile:
+        def one_eval():
+            model.user_emb, model.item_emb = model.embeddings()
+            model.fast_evaluation(0)
+
+        profile_window(f"eval {tag}", one_eval, 1)
+    return launches
+
+
+def yelp_model(cls, name, extra, data, dense):
+    import torch
+
+    set_layout(dense)
+    t0 = time.time()
+    model = cls(graph_conf(name, extra), *data, device="cuda")
+    model.build()
+    torch.cuda.synchronize()
+    log(f"[setup] {name}: {model.adj!r}, {model.data.n_edges} edges, "
+        f"{len(model.data.test_user_ids)} test users, {time.time() - t0:.1f} s")
+    return model
 
 
 def main():
@@ -245,9 +561,10 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     os.environ["SELFREC_TPU_DENSE_DTYPE"] = "int8"
     from selfrec_tpu_torch.device import disable_tf32
+    from selfrec_tpu_torch.models.graph.lightgcn import LightGCN
+    from selfrec_tpu_torch.models.graph.sgl import SGL
     from selfrec_tpu_torch.models.graph.simgcl import SimGCL
-    from selfrec_tpu_torch.ops import dense_dual
-    from selfrec_tpu_torch.utils import metrics
+    from selfrec_tpu_torch.ops import cuda_build, dense_dual, ell_gather
     from selfrec_tpu_torch.utils.synth import synth_graph_mapped
 
     disable_tf32()
@@ -256,110 +573,77 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
-    so = dense_dual.build()
-    log(f"[build] {so} in {time.time() - t0:.1f} s")
-    with open(so[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
+    libs = cuda_build.build_all()
+    log(f"[build] {sorted(libs.values())} in {time.time() - t0:.1f} s")
+    for so in libs.values():
+        with open(so[:-3] + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    log(f"[build] {os.path.basename(so)[:24]} {line.strip()}")
 
-    # the headline model on yelp2018-scale synthetic data
     t0 = time.time()
-    train, test = synth_graph_mapped()
-    model = SimGCL(graph_conf({"n_layer": 3, "lambda": 0.5, "eps": 0.1}),
-                   train, test, device="cuda")
-    model.build()
-    torch.cuda.synchronize()
-    log(f"[setup] {model.adj!r}, {model.data.n_edges} edges, "
-        f"{len(model.data.test_user_ids)} test users, {time.time() - t0:.1f} s")
+    data = synth_graph_mapped()
+    log(f"[setup] yelp2018-scale synthetic graph in {time.time() - t0:.1f} s")
 
-    # 1. kernel phase ------------------------------------------------------
+    # SimGCL int8x8 on the dense layout --------------------------------------
+    model = yelp_model(SimGCL, "SimGCL", SIMGCL, data, dense=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     small = (torch.rand((1000, 1337), generator=gen, device="cuda") < 0.3).to(torch.int8)
-    rows = [kernel_case("ragged", small, 64, gen),
-            kernel_case("ragged", small[:517, :1029].contiguous(), 192, gen),
-            kernel_case("yelp", model.adj.a_ui, 64, gen),
-            kernel_case("yelp", model.adj.a_ui, 192, gen)]
+    k1_rows = [k1_case("ragged", small, 64, gen),
+               k1_case("ragged", small[:517, :1029].contiguous(), 192, gen),
+               k1_case("yelp", model.adj.a_ui, 64, gen),
+               k1_case("yelp", model.adj.a_ui, 192, gen)]
     del small
+    simgcl_reference_phase()
+    k1_paths = {"simgcl_train": train_path("SimGCL int8x8", model, dense_dual.dual_matmul,
+                                           N_TRAIN_BATCHES, profile_steps=N_PROFILE_STEPS)}
+    k1_paths["simgcl_eval"] = eval_path("SimGCL int8x8", model, dense_dual.dual_matmul,
+                                        profile=True)
+    del model
     torch.cuda.empty_cache()
 
-    # 2. reference phase ---------------------------------------------------
-    reference_phase()
+    # SGL's ELL arm and LightGCN on the ELL layout ------------------------------
+    model = yelp_model(SGL, "SGL", SGL_CONF, data, dense=False)
+    model.aux = model.epoch_setup(0)
+    k2_rows = k2_phase(model)
+    torch.cuda.empty_cache()
+    sgl_reference_phase()
+    k2_paths = {"sgl_ell_train": train_path(
+        "SGL ELL", model, ell_gather.ell_gather_sum, N_TRAIN_BATCHES,
+        per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)}
+    k2_paths["sgl_ell_eval"] = eval_path("SGL ELL", model, ell_gather.ell_gather_sum)
+    del model
+    torch.cuda.empty_cache()
+    model = yelp_model(LightGCN, "LightGCN", {"n_layer": 3}, data, dense=False)
+    k2_paths["lightgcn_ell_train"] = train_path(
+        "LightGCN ELL", model, ell_gather.ell_gather_sum, N_SHORT_BATCHES,
+        per_step=2 * model.n_layers)
+    del model
+    torch.cuda.empty_cache()
 
-    # 3. train phase: the main path, counts from 0 -------------------------
-    users, items, masks = model.epoch_batches(0)
-    m = min(N_TRAIN_BATCHES, users.shape[0] - N_PROFILE_STEPS)
-    torch.cuda.synchronize()
-    dense_dual.dual_matmul.launches = 0
-    t0 = time.time()
-    first = model.train_batches(users[:1], items[:1], masks[:1])
-    torch.cuda.synchronize()
-    t1 = time.time()
-    rest = model.train_batches(users[1:m], items[1:m], masks[1:m])
-    torch.cuda.synchronize()
-    t2 = time.time()
-    train_launches = dense_dual.dual_matmul.launches
-    losses = torch.cat([first, rest]).cpu()
-    if not bool(torch.isfinite(losses).all()):
-        raise RuntimeError(f"train phase: non-finite losses {losses.tolist()}")
-    if train_launches <= 0:
-        raise RuntimeError("train phase: K1 was never launched")
-    ex_s = m * model.batch_size / (t2 - t0)
-    steady_ex_s = (m - 1) * model.batch_size / (t2 - t1)
-    log(f"[train] {m} batches x {model.batch_size}: loss {float(losses[0]):.6f} -> "
-        f"{float(losses[-1]):.6f}, {t2 - t0:.3f} s, {ex_s:.1f} examples/s "
-        f"(first step {1e3 * (t1 - t0):.1f} ms; steps 2..{m}: "
-        f"{1e3 * (t2 - t1) / (m - 1):.2f} ms/step, {steady_ex_s:.1f} examples/s), "
-        f"K1 launches {train_launches}")
-    n = N_PROFILE_STEPS
-    profile_window("train step", lambda: model.train_batches(
-        users[m:m + n], items[m:m + n], masks[m:m + n]), n)
+    # SGL's dense int8x8 arm: three views, each hop forward and backward ------
+    model = yelp_model(SGL, "SGL", SGL_CONF, data, dense=True)
+    k1_paths["sgl_dense_train"] = train_path(
+        "SGL dense int8x8", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
+        per_step=3 * 2 * model.n_layers)
+    del model
+    torch.cuda.empty_cache()
 
-    # 4. eval phase --------------------------------------------------------
-    torch.cuda.synchronize()
-    dense_dual.dual_matmul.launches = 0
-    t0 = time.time()
-    model.user_emb, model.item_emb = model.embeddings()
-    measure = model.fast_evaluation(0)
-    torch.cuda.synchronize()
-    eval_ms = 1e3 * (time.time() - t0)
-    eval_launches = dense_dual.dual_matmul.launches
-    ue, ie = model.user_emb, model.item_emb
-    if (tuple(ue.shape) != (model.data.user_num, 64)
-            or tuple(ie.shape) != (model.data.item_num, 64)
-            or not bool(torch.isfinite(ue).all() & torch.isfinite(ie).all())):
-        raise RuntimeError("eval phase: embeddings of the wrong shape or not finite")
-    if eval_launches != model.n_layers:
-        raise RuntimeError(f"eval phase: K1 launched {eval_launches} times, "
-                           f"expected {model.n_layers}")
-    perf = metrics.parse_measure(measure)
-    if not all(math.isfinite(v) for v in perf.values()):
-        raise RuntimeError(f"eval phase: metrics not finite: {perf}")
-    log(f"[eval] Recall@20 {perf['Recall']} NDCG@20 {perf['NDCG']}, "
-        f"{eval_ms:.1f} ms, K1 launches {eval_launches}")
-
-    def one_eval():
-        model.user_emb, model.item_emb = model.embeddings()
-        model.fast_evaluation(0)
-
-    profile_window("eval", one_eval, 1)
-
-    main_row = next(r for r in rows if r["tag"] == "yelp" and r["shape"][2] == 192)
-    kernels = [{
-        "name": "K1 dual_matmul (int8)",
-        "route": "cuda",
-        "source": "selfrec_tpu_torch/csrc/dense_dual.cu",
-        "replaces": "selfrec_tpu/ops/dense_dual.py:174",
-        "launches": train_launches + eval_launches,
-        "match": "exact",
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shapes": rows,
-    }]
+    k1_main = next(r for r in k1_rows if r["tag"] == "yelp" and r["shape"][2] == 192)
+    k2_main = next(r for r in k2_rows if r["tag"] == "yelp packed")
+    kernels = []
+    for name, source, replaces, paths, main_row, rows in (
+            ("K1 dual_matmul (int8)", "selfrec_tpu_torch/csrc/dense_dual.cu",
+             "selfrec_tpu/ops/dense_dual.py:174", k1_paths, k1_main, k1_rows),
+            ("K2 ell_gather_sum", "selfrec_tpu_torch/csrc/ell_gather.cu",
+             "selfrec_tpu/ops/spmm_pallas.py:94", k2_paths, k2_main, k2_rows)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+            "shapes": rows})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -13,11 +13,11 @@ from typing import Dict, Optional, Tuple
 # name -> (module path or None when not ported yet, class name, model type)
 MODEL_REGISTRY: Dict[str, Tuple[Optional[str], str, str]] = {
     "MF": (None, "MF", "graph"),
-    "LightGCN": (None, "LightGCN", "graph"),
+    "LightGCN": ("selfrec_tpu_torch.models.graph.lightgcn", "LightGCN", "graph"),
     "DirectAU": (None, "DirectAU", "graph"),
     "SimGCL": ("selfrec_tpu_torch.models.graph.simgcl", "SimGCL", "graph"),
     "XSimGCL": (None, "XSimGCL", "graph"),
-    "SGL": (None, "SGL", "graph"),
+    "SGL": ("selfrec_tpu_torch.models.graph.sgl", "SGL", "graph"),
     "NCL": (None, "NCL", "graph"),
     "MixGCF": (None, "MixGCF", "graph"),
     "BUIR": (None, "BUIR", "graph"),

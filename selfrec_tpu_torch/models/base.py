@@ -26,6 +26,7 @@ from selfrec_tpu_torch.data import io
 from selfrec_tpu_torch.data.interaction import Interaction
 from selfrec_tpu_torch.device import resolve_device
 from selfrec_tpu_torch.ops import ranking, sampling
+from selfrec_tpu_torch.ops.precision import set_compute_dtype
 from selfrec_tpu_torch.utils import metrics
 from selfrec_tpu_torch.utils.logger import Log
 
@@ -246,6 +247,8 @@ class TorchGraphRecommender(GraphRecommender):
         super().__init__(conf, training_set, test_set, device=device, **kwargs)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
+        if conf.contain("compute.dtype"):
+            set_compute_dtype(conf["compute.dtype"])
         self._rated_bitmap = None
         self.params: Optional[Dict[str, torch.Tensor]] = None
         self.optimizer = None
@@ -278,14 +281,22 @@ class TorchGraphRecommender(GraphRecommender):
                                 betas=(0.9, 0.999), eps=1e-8)
 
     def make_adj(self, scipy_norm_adj=None):
-        """Dense-bipartite device adjacency for the unified Laplacian
-        (``data.norm_adj`` by default)."""
+        """Device adjacency for the unified Laplacian (``data.norm_adj`` by
+        default): the dense-bipartite block where ``SELFREC_TPU_DENSE`` and
+        the budget allow it, else the ELL layout
+        (:func:`selfrec_tpu_torch.ops.graph.norm_adj_from_scipy`)."""
         from selfrec_tpu_torch.ops.graph import norm_adj_from_scipy
 
         mat = self.data.norm_adj if scipy_norm_adj is None else scipy_norm_adj
         return norm_adj_from_scipy(mat, self.data.user_num, device=self.device)
 
     # -- machinery ------------------------------------------------------------
+    def epoch_rng(self, epoch: int, stream: int = 0) -> np.random.Generator:
+        """Host RNG as a pure function of (seed, epoch, stream), the JAX
+        package's (base.py:572-576): per-epoch draws such as SGL's keep
+        masks are identical in both packages."""
+        return np.random.default_rng((self.seed, epoch, stream))
+
     def set_params(self, params: Dict[str, torch.Tensor]):
         """Install ``params`` (copied to the device as trainable leaves) and a
         fresh optimizer over them."""

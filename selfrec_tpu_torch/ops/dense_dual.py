@@ -26,68 +26,22 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from typing import Tuple
 
 import torch
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
-                    "csrc", "dense_dual.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from selfrec_tpu_torch.ops import cuda_build
+
 _lib = None
 _lib_lock = threading.Lock()
-
-
-def build_dir() -> str:
-    """Where compiled kernels go: ``$SELFREC_TPU_TORCH_BUILD`` or the
-    ``build/kernels`` directory beside the package (listed in .gitignore)."""
-    default = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "build", "kernels")
-    return os.environ.get("SELFREC_TPU_TORCH_BUILD", default)
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the dual kernel is built with the "
-                           "CUDA toolkit on the machine with the card")
-    return path
-
-
-def build() -> str:
-    """Compile ``csrc/dense_dual.cu`` into a shared library (cached by the
-    hash of the source and flags) and return its path. nvcc's output, with
-    ptxas's register and spill report, is kept beside it as ``.log``."""
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_dir()
-    os.makedirs(out_dir, exist_ok=True)
-    so_path = os.path.join(out_dir, f"libdense_dual_{digest}.so")
-    if os.path.exists(so_path):
-        return so_path
-    tmp = f"{so_path}.tmp{os.getpid()}"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.abspath(_SRC)],
-                          capture_output=True, text=True, timeout=600)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{log}")
-    with open(so_path[:-3] + ".log", "w") as f:
-        f.write(log)
-    os.replace(tmp, so_path)
-    return so_path
 
 
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = ctypes.CDLL(cuda_build.build("dense_dual.cu"))
             lib.selfrec_dual_s8.restype = ctypes.c_int
             lib.selfrec_dual_s8.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

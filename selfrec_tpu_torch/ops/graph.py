@@ -1,13 +1,18 @@
 """Graph propagation ops (counterpart of ``selfrec_tpu/ops/graph.py``).
 
-This slice ports the dense-bipartite layout only: :func:`spmm` dispatches
-``DenseAdj`` and raises for any other layout, and
-:func:`norm_adj_from_scipy` builds the dense block or raises. The ELL
-layout (and with it kernel K2) is ROADMAP.md item 10.
+:func:`spmm` dispatches on the adjacency's layout: the dense-bipartite
+block (:mod:`selfrec_tpu_torch.ops.spmm_dense`, kernel K1 in int8 mode) or
+the row-split ELL layout (:mod:`selfrec_tpu_torch.ops.spmm_ell`, kernel
+K2). :func:`norm_adj_from_scipy` picks between them by the JAX package's
+own gate (``SELFREC_TPU_DENSE``). Not ported yet: the edge-list
+``NormAdj`` (``SELFREC_TPU_ELL=0``), ``union_ell_template``, the dense
+``DenseMat`` and the sharded layouts (ROADMAP.md, "ELL remainders" and
+"Scale-out").
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -15,15 +20,34 @@ import torch
 
 from selfrec_tpu_torch.ops import spmm_dense
 from selfrec_tpu_torch.ops.spmm_dense import DenseAdj, dense_spmm
+from selfrec_tpu_torch.ops.spmm_ell import (EllAdj, ell_adj_from_edges, ell_spmm,
+                                            ell_spmm_packed)
 
 
 def spmm(adj, x: torch.Tensor) -> torch.Tensor:
     """(normalized adjacency) @ (embeddings) over the unified node space."""
     if isinstance(adj, DenseAdj):
         return dense_spmm(adj, x)
+    if isinstance(adj, EllAdj):
+        return ell_spmm(adj, x)
     raise NotImplementedError(
-        f"spmm over {type(adj).__name__}: only the dense-bipartite layout is "
-        "ported; the ELL layout is ROADMAP.md item 10")
+        f"spmm over {type(adj).__name__}: the port propagates DenseAdj and "
+        "EllAdj; the other layouts are queued in ROADMAP.md (\"ELL "
+        "remainders\", \"Scale-out\")")
+
+
+def spmm_packed(adj, w_edge_stack: torch.Tensor, x: torch.Tensor,
+                n_passes: int) -> torch.Tensor:
+    """P propagation passes sharing one layout, packed into one gather chain
+    (x is (n, P*D); ``w_edge_stack`` (P, E) per-pass weights in original
+    edge order): one K2 launch per hop for all P passes."""
+    if isinstance(adj, EllAdj):
+        return ell_spmm_packed(adj, w_edge_stack, x, n_passes)
+    raise TypeError(f"packed SpMM needs a shared layout, got {type(adj)}")
+
+
+def supports_packed(adj) -> bool:
+    return isinstance(adj, EllAdj)
 
 
 def lightgcn_propagate(adj, ego: torch.Tensor, n_layers: int,
@@ -80,27 +104,71 @@ def fused_simgcl_propagate(adj, ego: torch.Tensor, n_layers: int, eps: float,
     return out[:, :d], out[:, d: 2 * d], out[:, 2 * d:]
 
 
-def norm_adj_from_scipy(norm_adj, n_users: int, device="cuda") -> DenseAdj:
-    """Dense-bipartite device adjacency from the host scipy unified
-    Laplacian (the dense branch of graph.py:404-415).
+def bipartite_renorm_weights(edge_users: torch.Tensor, edge_items: torch.Tensor,
+                             keep: torch.Tensor, n_users: int,
+                             n_items: int) -> torch.Tensor:
+    """(2E,) symmetric-normalized weights over kept edges, ordered
+    [u→i edges ; i→u edges] (graph.py:175-195): the weights of a dropped
+    view over the template of :func:`build_bipartite_ell_template`."""
+    w_e = keep.to(torch.float32)
+    du = torch.zeros(n_users, dtype=torch.float32, device=w_e.device)
+    di = torch.zeros(n_items, dtype=torch.float32, device=w_e.device)
+    du.index_add_(0, edge_users, w_e)
+    di.index_add_(0, edge_items, w_e)
+    inv_sqrt_du = torch.where(du > 0, torch.rsqrt(torch.clamp(du, min=1e-12)), 0.0)
+    inv_sqrt_di = torch.where(di > 0, torch.rsqrt(torch.clamp(di, min=1e-12)), 0.0)
+    w = w_e * inv_sqrt_du[edge_users] * inv_sqrt_di[edge_items]
+    return torch.cat([w, w])
 
-    Raises when the (U, I) block does not fit the budget or the matrix is
-    not symmetric-bipartite: those graphs need the ELL layout, which is not
-    ported (ROADMAP.md item 10). No other layout is picked silently."""
-    n_items = norm_adj.shape[0] - n_users
-    if norm_adj.shape[0] != norm_adj.shape[1]:
+
+def build_bipartite_ell_template(edge_users, edge_items, n_users: int,
+                                 n_items: int, k: int = 16,
+                                 device="cuda") -> EllAdj:
+    """Static EllAdj over the symmetric bipartite edge list (host, one-time,
+    graph.py:198-210); reweight with :func:`bipartite_renorm_weights`. K is
+    16 whatever ``SELFREC_TPU_ELL_K`` says, as in the JAX package."""
+    eu = np.asarray(edge_users)
+    ei = np.asarray(edge_items)
+    src = np.concatenate([eu, ei + n_users])
+    dst = np.concatenate([ei + n_users, eu])
+    w = np.ones(2 * len(eu), dtype=np.float32)
+    return ell_adj_from_edges(src, dst, w, n_rows=n_users + n_items, k=k,
+                              device=device)
+
+
+def norm_adj_from_scipy(norm_adj, n_users: Optional[int] = None, k: int = 16,
+                        device="cuda"):
+    """Device adjacency from the host scipy normalized matrix (one-time
+    setup; graph.py:372-430, without ``dense_general``).
+
+    With ``n_users`` given for a square unified Laplacian, the dense
+    bipartite block is built when ``SELFREC_TPU_DENSE`` allows it: ``0``
+    never, ``1`` whenever the (U, I) block fits
+    ``SELFREC_TPU_DENSE_BUDGET_GB``, anything else (default ``auto``) only
+    when it fits and ``device`` is CUDA, and in every case only when the
+    matrix is symmetric-bipartite. Otherwise the row-split ELL layout, with
+    K from ``SELFREC_TPU_ELL_K`` (default ``k``); rectangular matrices have
+    rows as destinations. ``SELFREC_TPU_ELL=0`` (the edge-list NormAdj)
+    raises: it is not ported."""
+    device = torch.device(device)
+    coo = norm_adj.tocoo()
+    dense_mode = os.environ.get("SELFREC_TPU_DENSE", "auto")
+    if n_users is not None and dense_mode != "0":
+        n_items = norm_adj.shape[0] - n_users
+        if (norm_adj.shape[0] == norm_adj.shape[1]
+                and spmm_dense.fits_dense(n_users, n_items)
+                and (dense_mode == "1" or device.type == "cuda")):
+            blocks = spmm_dense.bipartite_blocks(coo, n_users)
+            if blocks is not None:
+                eu, ei, w = blocks
+                return spmm_dense.dense_adj_from_edges(eu, ei, w, n_users,
+                                                       n_items, device=device)
+    if os.environ.get("SELFREC_TPU_ELL", "1") == "0":
         raise NotImplementedError(
-            "rectangular adjacency: needs the ELL layout, ROADMAP.md item 10")
-    if not spmm_dense.fits_dense(n_users, n_items):
-        raise NotImplementedError(
-            f"the ({n_users}, {n_items}) dense block exceeds "
-            "SELFREC_TPU_DENSE_BUDGET_GB; graphs that do not fit need the ELL "
-            "layout, ROADMAP.md item 10")
-    blocks = spmm_dense.bipartite_blocks(norm_adj.tocoo(), n_users)
-    if blocks is None:
-        raise NotImplementedError(
-            "adjacency is not symmetric-bipartite: needs the ELL layout, "
-            "ROADMAP.md item 10")
-    eu, ei, w = blocks
-    return spmm_dense.dense_adj_from_edges(eu, ei, w, n_users, n_items,
-                                           device=device)
+            "SELFREC_TPU_ELL=0 asks for the edge-list NormAdj, which is not "
+            "ported (ROADMAP.md, \"ELL remainders\")")
+    k = int(os.environ.get("SELFREC_TPU_ELL_K", k))
+    return ell_adj_from_edges(
+        coo.col.astype(np.int32), coo.row.astype(np.int32),
+        coo.data.astype(np.float32), n_rows=norm_adj.shape[0],
+        n_cols=norm_adj.shape[1], k=k, device=device)

@@ -22,8 +22,9 @@ Matmul modes follow ``SELFREC_TPU_DENSE_DTYPE`` (``bfloat16`` default,
   They keep a copy of the block in the matmul dtype (a 4.8 GB f32 copy at
   yelp2018 scale: use float32 at test sizes).
 
-Not ported yet: the dropout and refactor views and ``DenseMat``
-(ROADMAP.md).
+SGL's per-epoch dropped views stay int8-factored through
+:meth:`DenseAdj.refactor_view`. Not ported yet: the dropout view and
+``DenseMat`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -95,6 +96,29 @@ class DenseAdj:
     def device(self) -> torch.device:
         return self.a_ui.device
 
+    def refactor_view(self, keep: torch.Tensor) -> "DenseAdj":
+        """Symmetric-renormalized dropped view that stays int8-factored
+        (spmm_dense.py:175-198): the kept-edge Laplacian is a new binary
+        incidence with diagonal scalings 1/sqrt over the recomputed degrees
+        (reference SGL.py:89-96). ``keep`` is (E,) bool over this block's
+        edge order (see :func:`adj_edge_perm`)."""
+        kf = keep.to(torch.float32)
+        du = torch.zeros(self.n_users, dtype=torch.float32, device=kf.device)
+        di = torch.zeros(self.n_items, dtype=torch.float32, device=kf.device)
+        du.index_add_(0, self.edge_users, kf)
+        di.index_add_(0, self.edge_items, kf)
+        ru = torch.where(du > 0, torch.rsqrt(torch.clamp(du, min=1e-12)), 0.0)
+        ci = torch.where(di > 0, torch.rsqrt(torch.clamp(di, min=1e-12)), 0.0)
+        b = torch.zeros((self.n_users, self.n_items), dtype=torch.int8,
+                        device=kf.device)
+        b.index_put_((self.edge_users, self.edge_items), keep.to(torch.int8),
+                     accumulate=True)
+        w = kf * ru[self.edge_users] * ci[self.edge_items]
+        return DenseAdj(b, self.edge_users, self.edge_items, w, self.n_users,
+                        self.n_items, ru, ci,
+                        torch.tensor(1.0, dtype=torch.float32, device=kf.device),
+                        mm_dtype=self.mm_dtype)
+
     def __repr__(self):
         mode = ("int8-factored" if self.factored else str(self.a_ui.dtype))
         gb = self.a_ui.numel() * self.a_ui.element_size() / 1e9
@@ -155,6 +179,24 @@ def dense_adj_from_edges(edge_users, edge_items, w, n_users: int,
     a = torch.zeros((n_users, n_items), dtype=dtype, device=device)
     a.index_put_((eu, ei), w32.to(dtype), accumulate=True)
     return DenseAdj(a, eu, ei, w32, n_users, n_items, mm_dtype=dtype)
+
+
+def adj_edge_perm(adj: DenseAdj, edge_users, edge_items, n_items: int) -> np.ndarray:
+    """perm[j] = dataset-edge index of the block's j-th edge, so a keep-mask
+    drawn in dataset edge order applies to the block's edge order (the
+    block is built from the scipy COO of norm_adj, whose order differs;
+    spmm_dense.py:353-370)."""
+    eu = np.asarray(edge_users)
+    ei = np.asarray(edge_items)
+    data_key = eu.astype(np.int64) * n_items + ei
+    adj_key = (adj.edge_users.cpu().numpy().astype(np.int64) * n_items
+               + adj.edge_items.cpu().numpy())
+    order = np.argsort(data_key)
+    pos = np.searchsorted(data_key[order], adj_key)
+    pos = np.minimum(pos, len(order) - 1)
+    if not np.array_equal(data_key[order][pos], adj_key):
+        raise ValueError("adjacency edges are not a permutation of the dataset edges")
+    return order[pos].astype(np.int32)
 
 
 def fits_dense(n_users: int, n_items: int, dtype=None) -> bool:

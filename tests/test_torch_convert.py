@@ -2,6 +2,7 @@
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from selfrec_tpu.ops.init import xavier_uniform as jax_xavier
@@ -46,3 +47,30 @@ def test_xavier_uniform_has_the_jax_bound_and_shape():
     assert t.shape == j.shape and t.dtype == torch.float32
     assert float(t.abs().max()) <= bound and np.abs(j).max() <= bound
     assert abs(float(t.std()) - float(j.std())) < 0.02 * bound
+
+
+@pytest.mark.parametrize("name", ["SimGCL", "LightGCN", "SGL"])
+def test_model_params_cross_unchanged(monkeypatch, tiny_graph_dataset, name):
+    """A JAX model's parameters install into the port's model of the same
+    name (same keys, shapes and dtypes as its own init) and come back equal."""
+    from selfrec_tpu.config import ModelConf as JaxConf
+    from selfrec_tpu.models import get_model_class as jax_model_class
+    from selfrec_tpu_torch.config import ModelConf
+    from selfrec_tpu_torch.models import get_model_class
+
+    monkeypatch.setenv("SELFREC_TPU_DENSE", "0")
+    conf = {"training.set": "<memory>", "test.set": "<memory>",
+            "model": {"name": name, "type": "graph"}, "item.ranking.topN": [10],
+            "embedding.size": 8, "max.epoch": 1, "batch.size": 32,
+            "learning.rate": 0.01, "reg.lambda": 0.0001, "output": "unused"}
+    train, test = tiny_graph_dataset
+    jm = jax_model_class(name)(JaxConf(dict(conf)), train, test)
+    tm = get_model_class(name)(ModelConf(dict(conf)), train, test, device="cpu")
+    jp = {k: np.asarray(v) for k, v in jm.init_params(jax.random.PRNGKey(1)).items()}
+    own = tm.init_params(torch.Generator().manual_seed(1))
+    assert {k: (tuple(v.shape), str(v.dtype)) for k, v in own.items()} == {
+        k: (v.shape, f"torch.{v.dtype}") for k, v in jp.items()}
+    tm.set_params(convert.params_from_jax(jp))
+    back = convert.params_to_jax(tm.params)
+    for k in jp:
+        np.testing.assert_array_equal(back[k], jp[k])

@@ -1,5 +1,6 @@
 """The port end to end on the CPU: the session and the CLI train SimGCL on
-the tiny block-structured dataset, write the reference-format artifacts and
+the tiny block-structured dataset, on the dense layout
+(``SELFREC_TPU_DENSE=1``; the CPU's default is ELL), write the reference-format artifacts and
 beat random (random Recall@10 is about 10/60 = 0.17), as
 tests/test_models_e2e.py holds the JAX package."""
 
@@ -33,6 +34,7 @@ def _conf(out_dir, **extra):
 @pytest.mark.parametrize("mode", ["int8", "float32"])
 def test_session_trains_simgcl_and_beats_random(tmp_path, tiny_graph_dataset,
                                                 monkeypatch, mode):
+    monkeypatch.setenv("SELFREC_TPU_DENSE", "1")
     monkeypatch.setenv("SELFREC_TPU_DENSE_DTYPE", mode)
     train, test = tiny_graph_dataset
     launches = dense_dual.dual_matmul.launches
@@ -66,7 +68,8 @@ def test_cli_runs_on_the_cpu(tmp_path, tiny_graph_dataset):
            "--set", f"test.set={tmp_path / 'test.txt'}",
            "--set", "max.epoch=2", "--set", "batch.size=64",
            "--set", "embedding.size=16", "--set", f"output={out}/"]
-    env = dict(os.environ, PYTHONPATH=REPO, SELFREC_TPU_DENSE_DTYPE="int8")
+    env = dict(os.environ, PYTHONPATH=REPO, SELFREC_TPU_DENSE="1",
+               SELFREC_TPU_DENSE_DTYPE="int8")
     proc = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]

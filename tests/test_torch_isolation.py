@@ -1,6 +1,6 @@
 """The PyTorch port (selfrec_tpu_torch) and chip_smoke.py stand alone: they
 import neither JAX nor the JAX package, and the registry, device and kernel
-wrapper refuse what this slice does not port instead of falling back."""
+wrappers refuse what the port does not do instead of falling back."""
 
 import ast
 import os
@@ -15,7 +15,8 @@ import torch
 import selfrec_tpu_torch
 from selfrec_tpu_torch import device as device_lib
 from selfrec_tpu_torch.models import MODEL_REGISTRY, get_model_class
-from selfrec_tpu_torch.ops import dense_dual
+from selfrec_tpu_torch.ops import cuda_build, dense_dual, ell_gather
+from selfrec_tpu_torch.ops.spmm_ell import build_ell_layout
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.join(REPO, "selfrec_tpu_torch")
@@ -37,7 +38,8 @@ def _port_sources():
 
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules() + ["selfrec_tpu_torch.__main__"]
-    assert "selfrec_tpu_torch.ops.dense_dual" in mods
+    assert {"selfrec_tpu_torch.ops.dense_dual", "selfrec_tpu_torch.ops.ell_gather",
+            "selfrec_tpu_torch.models.graph.sgl"} <= set(mods)
     code = (
         "import sys, importlib, importlib.util, runpy\n"
         f"for m in {mods!r}:\n"
@@ -74,9 +76,10 @@ def test_registry_lists_every_model_and_refuses_unported():
     from selfrec_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
 
     assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
-    assert get_model_class("SimGCL").__name__ == "SimGCL"
+    for name in ("SimGCL", "LightGCN", "SGL"):
+        assert get_model_class(name).__name__ == name
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model_class("LightGCN")
+        get_model_class("XSimGCL")
     with pytest.raises(KeyError):
         get_model_class("NoSuchModel")
 
@@ -118,8 +121,71 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 
 def test_kernel_build_dir_is_ignored_by_git():
     ignored = open(os.path.join(REPO, ".gitignore")).read().split()
-    rel = os.path.relpath(dense_dual.build_dir(), REPO).split(os.sep)[0]
+    rel = os.path.relpath(cuda_build.build_dir(), REPO).split(os.sep)[0]
     assert f"/{rel}/" in ignored
+
+
+def _ragged_layout(k, device, n_rows=300, n_src=200, seed=0):
+    """A random layout where row 0 spans many virtual rows."""
+    rng = np.random.default_rng(seed)
+    dst = np.concatenate([np.zeros(40 * k, np.int32),
+                          rng.integers(1, n_rows, 2000).astype(np.int32)])
+    src = rng.integers(0, n_src, len(dst)).astype(np.int32)
+    layout, _ = build_ell_layout(src, dst, n_rows, k=k, device=device)
+    return layout
+
+
+def test_ell_gather_wrapper_checks_and_counts_only_launches():
+    layout = _ragged_layout(4, "cpu")
+    v = layout.vdst.shape[0]
+    w = torch.rand((3, v, 4))
+    x = torch.randn((200, 3 * 8))
+    before = ell_gather.ell_gather_sum.launches
+    out = ell_gather.ell_gather_sum(layout, w, x)
+    assert ell_gather.ell_gather_sum.launches == before  # CPU: plain version
+    assert out.shape == (300, 24) and out.dtype == torch.float32
+    with pytest.raises(TypeError):
+        ell_gather.ell_gather_sum(layout, w.double(), x)
+    with pytest.raises(ValueError, match="passes"):
+        ell_gather.ell_gather_sum(layout, w, x[:, :22])
+    with pytest.raises(ValueError, match="gathers from"):
+        ell_gather.ell_gather_sum(layout, w, x[:150])
+    with pytest.raises(ValueError, match="layout"):
+        ell_gather.ell_gather_sum(layout, w[:, :-1], x)
+
+
+@pytest.mark.parametrize("failure", ["not_hopper", "no_library"])
+def test_ell_gather_refuses_cuda_tensors_it_cannot_launch_on(monkeypatch, failure):
+    """CUDA tensors never take the plain version: where the kernel cannot
+    launch, the wrapper raises. Fake CUDA tensors stand in for a card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    plain_calls = []
+    monkeypatch.setattr(ell_gather, "ell_gather_sum_plain",
+                        lambda *a: plain_calls.append(a))
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda dev=None: (8, 0) if failure == "not_hopper" else (9, 0))
+
+    def no_library():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(ell_gather, "_load", no_library)
+    cpu_layout = _ragged_layout(16, "cpu")
+    before = ell_gather.ell_gather_sum.launches
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        def fake(t):
+            return torch.empty(t.shape, dtype=t.dtype, device="cuda")
+
+        layout = cpu_layout._replace(**{n: fake(getattr(cpu_layout, n)) for n in
+                                        ("vidx", "vdst", "edge_slots", "row_ptr")})
+        w = torch.ones((1, layout.vdst.shape[0], 16), device="cuda")
+        x = torch.ones((200, 64), device="cuda")
+        assert x.device.type == "cuda"
+        with pytest.raises(RuntimeError, match="sm_90a" if failure == "not_hopper"
+                           else "nvcc"):
+            ell_gather.ell_gather_sum(layout, w, x)
+    assert plain_calls == []
+    assert ell_gather.ell_gather_sum.launches == before
 
 
 @pytest.mark.cuda
@@ -141,3 +207,28 @@ def test_dual_kernel_matches_plain_on_the_card():
         assert dense_dual.dual_matmul.launches == before + 1
         pu, pi = dense_dual.dual_matmul_plain(b, xu, xi)
         assert torch.equal(ou, pu) and torch.equal(oi, pi)
+
+
+@pytest.mark.cuda
+def test_ell_gather_kernel_matches_plain_on_the_card():
+    """K2 against its plain version at rtol/atol 2e-5: ragged layouts at
+    K 4 and 16, one and three passes, f32 and bf16 rows. Run as the dual
+    kernel's test above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for k, p, d, dtype in [(4, 1, 64, torch.float32), (16, 3, 64, torch.float32),
+                           (16, 1, 64, torch.bfloat16), (16, 2, 20, torch.float32)]:
+        layout = _ragged_layout(k, "cuda", seed=k)
+        v = layout.vdst.shape[0]
+        w = torch.rand((p, v, k), generator=gen, device="cuda")
+        x = torch.randn((200, p * d), generator=gen, device="cuda").to(dtype)
+        if dtype == torch.bfloat16:
+            w = w.to(dtype).float()
+        before = ell_gather.ell_gather_sum.launches
+        out = ell_gather.ell_gather_sum(layout, w, x)
+        torch.cuda.synchronize()
+        assert ell_gather.ell_gather_sum.launches == before + 1
+        torch.testing.assert_close(out, ell_gather.ell_gather_sum_plain(layout, w, x),
+                                   rtol=2e-5, atol=2e-5)
+        assert torch.equal(out, ell_gather.ell_gather_sum(layout, w, x))

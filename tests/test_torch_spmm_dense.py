@@ -25,6 +25,7 @@ from selfrec_tpu.ops import spmm_dense as jax_dense
 from selfrec_tpu_torch.ops import dense_dual
 from selfrec_tpu_torch.ops import graph as t_graph
 from selfrec_tpu_torch.ops import spmm_dense as t_dense
+from selfrec_tpu_torch.ops.spmm_ell import EllAdj
 
 NU, NI = 120, 160
 
@@ -185,14 +186,20 @@ def test_norm_adj_from_scipy_and_lightgcn_match_jax(monkeypatch):
 
 
 def test_norm_adj_from_scipy_refuses_instead_of_switching_layout(monkeypatch):
+    """Where the dense block cannot serve, both packages take the ELL
+    layout; the layouts the port lacks raise instead of being replaced."""
+    monkeypatch.setenv("SELFREC_TPU_DENSE", "1")
     mat = _laplacian().tolil()
     mat[0, 1] = 0.5  # a user-user entry: not bipartite
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
-        t_graph.norm_adj_from_scipy(mat.tocsr(), NU, device="cpu")
+    nonbip = mat.tocsr()
+    assert isinstance(t_graph.norm_adj_from_scipy(nonbip, NU, device="cpu"), EllAdj)
+    assert type(jax_graph.norm_adj_from_scipy(nonbip, n_users=NU)).__name__ == "EllAdj"
     monkeypatch.setenv("SELFREC_TPU_DENSE_BUDGET_GB", "0.000001")
-    with pytest.raises(NotImplementedError, match="ELL"):
+    assert isinstance(t_graph.norm_adj_from_scipy(_laplacian(), NU, device="cpu"), EllAdj)
+    monkeypatch.setenv("SELFREC_TPU_ELL", "0")
+    with pytest.raises(NotImplementedError, match="ELL remainders"):
         t_graph.norm_adj_from_scipy(_laplacian(), NU, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_graph.spmm(object(), torch.zeros(1, 1))
 
 
