@@ -8,11 +8,20 @@ checkout, one nvcc each, started together. Every model runs on the
 yelp2018-scale synthetic graph (31,667 users, 38,048 items, 1,428,306
 training edges) at D = 64 and batch 2048, with random weights from a seed.
 
+Prints each kernel's registers, shared memory and spills from
+``nvcc -Xptxas -v``.
+
 SimGCL, int8x8 dense layout (SELFREC_TPU_DENSE=1):
-1. K1 kernel phase: K1 against its plain torch version at a ragged small
-   shape and at the yelp block with D = 64 and D = 192; outputs must match
-   exactly. Times the kernel, the plain version and two ``torch._int_mm``
-   calls (a yardstick the port never calls), and computes each bound.
+1. K1 kernel phase: K1's int8 kernel against its plain torch version at
+   two ragged small shapes and at the yelp block (with its kept transpose,
+   as the model path passes it) with D = 64 and D = 192; outputs must
+   match exactly. Times the kernel (one call at a time, and back to
+   back), the plain version and two ``torch._int_mm`` calls (a yardstick
+   the port never calls), and computes each bound. Then K1's float kernel, which no model path runs,
+   with bf16 and f32 operands at the ragged shapes and the yelp block at
+   D = 64 and 192: within rtol 1e-5 / atol 1e-3 of the plain version, its
+   backward too at the ragged shapes; two ``torch.matmul`` over a copy of
+   B in the operands' dtype are its yardstick.
 2. reference phase: on a small graph, the embeddings, one batch loss and
    the top-20 lists on the card agree with the same model on the CPU.
 3. train phase: n_layer 3, lambda 0.5, eps 0.1 (the repo's headline
@@ -28,9 +37,10 @@ temp 0.2), ELL layout (SELFREC_TPU_DENSE=0), and LightGCN on it:
    yelp unified layout at P = 1 (D 64, f32 and bf16 rows) and on SGL's
    packed template at P = 3 (D 64 x 3), and exactly on the Mosaic gather
    probe's case (scripts/probe_mosaic_gather.py: n 256, D 128, K = 1, unit
-   weights). Times the kernel, the plain version and ``torch.sparse.mm``
-   over the same CSR matrices (one call per pass; a yardstick the port
-   never calls), and computes each bound.
+   weights). Times the kernel (one call at a time, and back to back),
+   the plain version and ``torch.sparse.mm`` over the same CSR matrices
+   (one call per pass; a yardstick the port never calls), and computes
+   each bound.
 6. reference phase: on a small graph, SGL's ELL arm on the card agrees with
    the CPU (same weights, keep masks and batch): embeddings, loss, grads
    and top-20 lists.
@@ -55,6 +65,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -63,6 +74,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 INT8_OPS_PER_S = 1.979e15   # H100 SXM data sheet, dense int8 tensor rate
 F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 tensor rate
+K1_FLOAT_RTOL, K1_FLOAT_ATOL = 1e-5, 1e-3  # the JAX package's (tests/test_dense_dual.py)
 N_TRAIN_BATCHES = 50
 N_SHORT_BATCHES = 10
 N_PROFILE_STEPS = 5
@@ -73,21 +86,34 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps):
-    """Median device time of ``fn`` over ``reps`` launches, after one warm-up."""
+def cuda_ms(fn, reps, inner=1):
+    """Time of one call of ``fn`` on the card: the median over ``reps``
+    timings after one warm-up, each of ``inner`` back-to-back calls between
+    two CUDA events divided by ``inner``. With one call a timing (``ms``,
+    ``plain_ms``, ``library_ms``) the card waits while the host prepares the
+    call, so the host's own time per call is in it; with more
+    (``ms_back_to_back``) the card stays busy while the host enqueues the
+    next call, so the host's time shows only where it exceeds the kernel's."""
     import torch
 
     fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, ms):
+    """``fn``'s time in runs of back-to-back calls (enough for about 2 ms,
+    at most 20), given its time ``ms`` one call at a time."""
+    return cuda_ms(fn, reps=10, inner=max(1, min(20, int(2.0 / max(ms, 1e-3)))))
 
 
 def bound_ms(nbytes, ops, ops_per_s):
@@ -102,10 +128,11 @@ def set_layout(dense):
     os.environ["SELFREC_TPU_DENSE"] = "1" if dense else "0"
 
 
-def k1_case(tag, b, d, gen):
-    """K1 vs plain on one shape; returns its row of the kernel table. The
-    bound reads each input byte once, writes each int32 output once and
-    does 2*2*U*I*D int8 operations."""
+def k1_case(tag, b, bt, d, gen):
+    """K1 (int8) vs plain on one shape, with the block's transpose ``bt``
+    as the model path passes it; returns its row of the kernel table. The
+    bound reads each input byte once (B once), writes each int32 output
+    once and does 2*2*U*I*D int8 operations."""
     import torch
     import torch.nn.functional as F
 
@@ -115,7 +142,7 @@ def k1_case(tag, b, d, gen):
     dev = b.device
     xu = torch.randint(-127, 128, (u, d), generator=gen, device=dev, dtype=torch.int8)
     xi = torch.randint(-127, 128, (i, d), generator=gen, device=dev, dtype=torch.int8)
-    ou, oi = dense_dual.dual_matmul(b, xu, xi)
+    ou, oi = dense_dual.dual_matmul(b, xu, xi, bt)
     torch.cuda.synchronize()
     pu, pi = dense_dual.dual_matmul_plain(b, xu, xi)
     err = max(int((ou.long() - pu.long()).abs().max()),
@@ -125,7 +152,12 @@ def k1_case(tag, b, d, gen):
         raise RuntimeError(f"K1 {tag} U={u} I={i} D={d}: {n_bad} outputs differ "
                            f"from the plain version, max |err| {err}")
     del pu, pi
-    ms = cuda_ms(lambda: dense_dual.dual_matmul(b, xu, xi), reps=20)
+    again = dense_dual.dual_matmul(b, xu, xi, bt)
+    if not (torch.equal(ou, again[0]) and torch.equal(oi, again[1])):
+        raise RuntimeError(f"K1 {tag}: two runs on the same inputs differ")
+    del again
+    ms = cuda_ms(lambda: dense_dual.dual_matmul(b, xu, xi, bt), reps=20)
+    ms_b2b = back_to_back_ms(lambda: dense_dual.dual_matmul(b, xu, xi, bt), ms)
     plain_ms = cuda_ms(lambda: dense_dual.dual_matmul_plain(b, xu, xi), reps=3)
     # yardstick: torch._int_mm wants K and N multiples of 8, so pad the
     # contraction dims with zeros once, outside the timing
@@ -144,11 +176,78 @@ def k1_case(tag, b, d, gen):
     bms, bound_by = bound_ms(u * i + (u + i) * d + 4 * (u + i) * d, 4.0 * u * i * d,
                              INT8_OPS_PER_S)
     row = {"shape": [u, i, d], "tag": tag, "match": "exact", "max_abs_err": err,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bms, "bound_by": bound_by}
+           "ms": ms, "ms_back_to_back": ms_b2b, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by}
     log(f"[kernel] K1 {tag} U={u} I={i} D={d}: exact, {ms:.4f} ms "
-        f"(bound {bms:.4f} ms by {bound_by}, plain {plain_ms:.3f} ms, "
-        f"_int_mm x2 {library_ms:.4f} ms)")
+        f"({ms_b2b:.4f} back to back; bound {bms:.4f} ms by {bound_by}, "
+        f"plain {plain_ms:.3f} ms, _int_mm x2 {library_ms:.4f} ms)")
+    return row
+
+
+def k1_float_case(tag, b, bt, d, dtype, gen, grad=False):
+    """K1's float kernel vs plain on one shape, operands N(0, 0.1^2) in
+    ``dtype``, within rtol 1e-5 / atol 1e-3; with ``grad`` its autograd
+    backward (the same kernel) too. Returns its row of the kernel table.
+    The bound reads B once and each operand once, writes each f32 output
+    once, and does 2*2*U*I*D operations at the bf16 tensor rate, three
+    times over for f32 operands (the kernel's method: three bf16 pieces a
+    value, each through the tensor cores). The yardstick is two
+    torch.matmul over a copy of B in the operands' dtype."""
+    import torch
+
+    from selfrec_tpu_torch.ops import dense_dual
+
+    u, i = b.shape
+    xu = (0.1 * torch.randn((u, d), generator=gen, device=b.device)).to(dtype)
+    xi = (0.1 * torch.randn((i, d), generator=gen, device=b.device)).to(dtype)
+    ou, oi = dense_dual.dual_matmul(b, xu, xi, bt)
+    torch.cuda.synchronize()
+    pu, pi = dense_dual.dual_matmul_plain(b, xu, xi)
+    err = max(float((ou - pu).abs().max()), float((oi - pi).abs().max()))
+    for got, want in ((ou, pu), (oi, pi)):
+        if not torch.allclose(got, want, rtol=K1_FLOAT_RTOL, atol=K1_FLOAT_ATOL):
+            raise RuntimeError(f"K1 float {tag} {dtype} U={u} I={i} D={d}: differs "
+                               f"from the plain version, max |err| {err}")
+    del pu, pi
+    if grad:
+        xu.requires_grad_(True)
+        xi.requires_grad_(True)
+        ou, oi = dense_dual.dual_matmul(b, xu, xi, bt)
+        wu, wi = torch.randn_like(ou), torch.randn_like(oi)
+        ((ou * wu).sum() + (oi * wi).sum()).backward()
+        gu, gi = dense_dual.dual_matmul_plain(b, wu.to(dtype), wi.to(dtype))
+        # a bf16 gradient is the f32 sum rounded to bf16: two f32 sums a few
+        # bits apart may round to neighbouring bf16 values, 2^-7 apart
+        rtol = K1_FLOAT_RTOL if dtype == torch.float32 else 2 ** -7
+        for got, want in ((xu.grad, gu), (xi.grad, gi)):
+            if not torch.allclose(got.float(), want.to(dtype).float(), rtol=rtol,
+                                  atol=K1_FLOAT_ATOL):
+                raise RuntimeError(f"K1 float {tag} {dtype}: the backward differs "
+                                   f"from the plain products")
+        xu, xi = xu.detach(), xi.detach()
+    ms = cuda_ms(lambda: dense_dual.dual_matmul(b, xu, xi, bt), reps=5)
+    ms_b2b = back_to_back_ms(lambda: dense_dual.dual_matmul(b, xu, xi, bt), ms)
+    plain_ms = cuda_ms(lambda: dense_dual.dual_matmul_plain(b, xu, xi), reps=3)
+    b_mm = b.to(dtype)
+    lib_u, lib_i = torch.matmul(b_mm, xi), torch.matmul(b_mm.T, xu)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    if not (torch.allclose(lib_u.float(), ou, rtol=tol, atol=tol)
+            and torch.allclose(lib_i.float(), oi, rtol=tol, atol=tol)):
+        raise RuntimeError(f"K1 float {tag}: the torch.matmul yardstick disagrees")
+    library_ms = cuda_ms(lambda: (torch.matmul(b_mm, xi), torch.matmul(b_mm.T, xu)), reps=5)
+    del b_mm, lib_u, lib_i
+    esz = xu.element_size()
+    pieces = 1 if dtype == torch.bfloat16 else 3
+    bms, bound_by = bound_ms(u * i + esz * (u + i) * d + 4 * (u + i) * d,
+                             pieces * 4.0 * u * i * d, BF16_OPS_PER_S)
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    row = {"shape": [u, i, d], "x": dt, "tag": tag,
+           "match": f"rtol {K1_FLOAT_RTOL} atol {K1_FLOAT_ATOL}", "max_abs_err": err,
+           "ms": ms, "ms_back_to_back": ms_b2b, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by}
+    log(f"[kernel] K1 float {tag} U={u} I={i} D={d} {dt}: max |err| {err:.3g}, "
+        f"{ms:.4f} ms ({ms_b2b:.4f} back to back; bound {bms:.4f} ms by {bound_by}, "
+        f"plain {plain_ms:.3f} ms, torch.matmul x2 {library_ms:.4f} ms)")
     return row
 
 
@@ -180,6 +279,7 @@ def k2_case(tag, layout, w, x, exact=False):
         raise RuntimeError(f"K2 {tag}: two runs on the same inputs differ")
     del ref
     ms = cuda_ms(lambda: ell_gather.ell_gather_sum(layout, w, x), reps=20)
+    ms_b2b = back_to_back_ms(lambda: ell_gather.ell_gather_sum(layout, w, x), ms)
     plain_ms = cuda_ms(lambda: ell_gather.ell_gather_sum_plain(layout, w, x), reps=3)
 
     rows = layout.vdst.long().repeat_interleave(k)
@@ -199,9 +299,13 @@ def k2_case(tag, layout, w, x, exact=False):
         return [torch.sparse.mm(m, xi) for m, xi in zip(mats, xs)]
 
     lib = torch.cat(library(), dim=1).float()
-    tol = 1e-4 if x.dtype == torch.float32 else 2e-2
-    if not torch.allclose(lib, out, rtol=tol, atol=tol):
-        raise RuntimeError(f"K2 {tag}: the torch.sparse.mm yardstick disagrees")
+    # the yardstick must compute the same function; with bf16 rows its
+    # output is bf16, whose rounding (and the library's own summation in
+    # bf16) is no measure of K2, so its distance is only reported
+    lib_err = float((lib - out).abs().max()) if out.numel() else 0.0
+    if x.dtype == torch.float32 and not torch.allclose(lib, out, rtol=1e-4, atol=1e-4):
+        raise RuntimeError(f"K2 {tag}: the torch.sparse.mm yardstick disagrees "
+                           f"by {lib_err}")
     library_ms = cuda_ms(library, reps=10)
     del mats, lib
     nbytes = (layout.vidx.numel() * 4 + w.numel() * 4 + x.numel() * x.element_size()
@@ -212,12 +316,15 @@ def k2_case(tag, layout, w, x, exact=False):
     row = {"shape": {"V": v, "K": k, "P": p, "D": d, "n_rows": layout.n_rows,
                      "n_src": x.shape[0], "x": dt},
            "tag": tag, "match": "exact" if exact else f"rtol/atol {K2_RTOL}",
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bms, "bound_by": bound_by, "gathered_bytes": gathered}
+           "max_abs_err": err, "ms": ms, "ms_back_to_back": ms_b2b, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by,
+           "gathered_bytes": gathered,
+           "library_max_abs_diff": lib_err}
     log(f"[kernel] K2 {tag} V={v} K={k} P={p} D={d} {dt}: max |err| {err:.3g}, "
-        f"{ms:.4f} ms (bound {bms:.4f} ms by {bound_by}, gathered rows "
-        f"{gathered / 1e9:.3f} GB; plain {plain_ms:.3f} ms, sparse.mm x{p} "
-        f"{library_ms:.4f} ms)")
+        f"{ms:.4f} ms ({ms_b2b:.4f} back to back; bound {bms:.4f} ms by {bound_by}, "
+        f"gathered rows {gathered / 1e9:.3f} GB; plain {plain_ms:.3f} ms, sparse.mm x{p} "
+        f"{library_ms:.4f} ms, kernel/sparse.mm {ms / library_ms:.3f}, max |sparse.mm "
+        f"- K2| {lib_err:.3g})")
     return row
 
 
@@ -471,7 +578,11 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0):
     import torch
 
     users, items, masks = model.epoch_batches(0)
+    torch.cuda.synchronize()
+    t_setup = time.time()
     model.aux = model.epoch_setup(0)
+    torch.cuda.synchronize()
+    setup_ms = 1e3 * (time.time() - t_setup)
     m = min(n_batches, users.shape[0] - profile_steps)
     torch.cuda.synchronize()
     counter.launches = 0
@@ -494,7 +605,7 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0):
         f"{m * model.batch_size / (t2 - t0):.1f} examples/s (first step "
         f"{1e3 * (t1 - t0):.1f} ms; steps 2..{m}: {1e3 * (t2 - t1) / (m - 1):.2f} "
         f"ms/step, {(m - 1) * model.batch_size / (t2 - t1):.1f} examples/s), "
-        f"launches {launches}")
+        f"launches {launches}; epoch_setup {setup_ms:.1f} ms")
     if profile_steps:
         n = profile_steps
         profile_window(f"train {tag}", lambda: model.train_batches(
@@ -576,10 +687,16 @@ def main():
     libs = cuda_build.build_all()
     log(f"[build] {sorted(libs.values())} in {time.time() - t0:.1f} s")
     for so in libs.values():
+        kernel = "?"
         with open(so[:-3] + ".log") as f:
             for line in f:
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {os.path.basename(so)[:24]} {line.strip()}")
+                if "Compiling entry function" in line:
+                    found = re.search(r"(dual_s8|dual_float|ell_items|ell_long_rows)"
+                                      r"_kernel(I\w+?EE)?", line)
+                    kernel = found.group(0) if found else line.split("'")[1]
+                elif "registers" in line or "spill" in line:
+                    log(f"[build] {kernel}: "
+                        f"{re.sub(r'^ptxas info\s*:\s*', '', line.strip())}")
 
     t0 = time.time()
     data = synth_graph_mapped()
@@ -589,11 +706,17 @@ def main():
     model = yelp_model(SimGCL, "SimGCL", SIMGCL, data, dense=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     small = (torch.rand((1000, 1337), generator=gen, device="cuda") < 0.3).to(torch.int8)
-    k1_rows = [k1_case("ragged", small, 64, gen),
-               k1_case("ragged", small[:517, :1029].contiguous(), 192, gen),
-               k1_case("yelp", model.adj.a_ui, 64, gen),
-               k1_case("yelp", model.adj.a_ui, 192, gen)]
-    del small
+    ragged = [(small, 64), (small[:517, :1029].contiguous(), 192)]
+    ragged = [(b, dense_dual.block_transpose(b), d) for b, d in ragged]
+    yelp = [(model.adj.a_ui, model.adj.a_iu, d) for d in (64, 192)]
+    k1_rows = [k1_case(tag, b, bt, d, gen) for tag, cases in (("ragged", ragged),
+                                                                ("yelp", yelp))
+               for b, bt, d in cases]
+    k1f_rows = [k1_float_case(tag, b, bt, d, dtype, gen, grad=tag == "ragged")
+                for tag, cases in (("ragged", ragged), ("yelp", yelp))
+                for b, bt, d in cases for dtype in (torch.bfloat16, torch.float32)]
+    del small, ragged, yelp
+    torch.cuda.empty_cache()
     simgcl_reference_phase()
     k1_paths = {"simgcl_train": train_path("SimGCL int8x8", model, dense_dual.dual_matmul,
                                            N_TRAIN_BATCHES, profile_steps=N_PROFILE_STEPS)}
@@ -630,19 +753,24 @@ def main():
     torch.cuda.empty_cache()
 
     k1_main = next(r for r in k1_rows if r["tag"] == "yelp" and r["shape"][2] == 192)
+    k1f_main = next(r for r in k1f_rows if r["tag"] == "yelp" and r["shape"][2] == 64
+                    and r["x"] == "bf16")
     k2_main = next(r for r in k2_rows if r["tag"] == "yelp packed")
     kernels = []
     for name, source, replaces, paths, main_row, rows in (
             ("K1 dual_matmul (int8)", "selfrec_tpu_torch/csrc/dense_dual.cu",
              "selfrec_tpu/ops/dense_dual.py:174", k1_paths, k1_main, k1_rows),
+            # no model path runs the float variant, as in the JAX package
+            ("K1 dual_matmul (bf16/f32 operands)", "selfrec_tpu_torch/csrc/dense_dual.cu",
+             "selfrec_tpu/ops/dense_dual.py:174", {}, k1f_main, k1f_rows),
             ("K2 ell_gather_sum", "selfrec_tpu_torch/csrc/ell_gather.cu",
              "selfrec_tpu/ops/spmm_pallas.py:94", k2_paths, k2_main, k2_rows)):
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms")},
+            **{k: main_row[k] for k in ("ms", "ms_back_to_back", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
             "shapes": rows})
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,11 +13,15 @@ from typing import Dict
 import numpy as np
 import torch
 
+from selfrec_tpu_torch.device import resolve_device
 
-def params_from_jax(params: Dict[str, np.ndarray], device="cpu") -> Dict[str, torch.Tensor]:
+
+def params_from_jax(params: Dict[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
     """{name: array} (a flat JAX params dict after ``np.asarray``) ->
-    {name: tensor} on ``device``, values and dtypes unchanged."""
-    return {k: torch.as_tensor(np.array(v, copy=True), device=device)
+    {name: tensor} on ``device`` (default the card, like every entry point;
+    pass ``device="cpu"`` for the CPU), values and dtypes unchanged."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.array(v, copy=True), device=dev)
             for k, v in params.items()}
 
 

@@ -91,3 +91,19 @@ def build_all(sources: Iterable[str] = SOURCES) -> Dict[str, str]:
 def build(source: str) -> str:
     """Library path of one source of ``csrc/``, compiling it if needed."""
     return build_all([source])[source]
+
+
+def hopper_library(device, ready: set, load, what: str):
+    """``load()``'s kernel library for ``device``, after checking once per
+    device (``ready`` holds those that passed) that it is an sm_90 card,
+    which the kernels are built for; raises otherwise."""
+    if device.index not in ready:
+        import torch
+
+        cap = torch.cuda.get_device_capability(device)
+        if tuple(cap) != (9, 0):
+            raise RuntimeError(f"{what}'s kernel is built for sm_90a (Hopper); device "
+                               f"{device} is sm_{cap[0]}{cap[1]}")
+    lib = load()
+    ready.add(device.index)
+    return lib

@@ -1,7 +1,7 @@
 """Weighted ELL gather plus sorted segment-sum: kernel K2 of the port.
 
-    partial[v, p*D + d] = sum_k w[p, v, k] * x[vidx[v, k], p*D + d]
-    out[r]              = sum of partial[v] over the virtual rows v of r
+    out[r, p*D + d] = sum over the virtual rows v of r, and k < K, of
+                      w[p, v, k] * x[vidx[v, k], p*D + d]
 
 over one row-split ELL layout (:class:`selfrec_tpu_torch.ops.spmm_ell.
 EllLayout`) for P passes of width D packed side by side in ``x``. Replaces
@@ -12,14 +12,19 @@ computes the same function with an XLA gather, an einsum and a
 ``segment_sum`` (spmm_ell.py:133-189, 286-297). The port computes it
 through K2, so the sums differ from the JAX package's only in f32 order.
 
-On the card it is the hand-written CUDA kernel in ``csrc/ell_gather.cu``
-(two phases: per-virtual-row partials, then an in-order sum over each
-row's contiguous partials; no atomics, so runs repeat bit for bit); that
-file states its design and its bound on an H100.
+On the card it is the hand-written CUDA kernel in ``csrc/ell_gather.cu``:
+one pass over the layout's work items (:func:`selfrec_tpu_torch.ops.
+spmm_ell.row_work`), where a short row's item writes its output row and a
+long row's items write partials that a second, short pass adds in order.
+No atomics, so runs repeat bit for bit; that file states its design and its
+bound on an H100.
 
-:func:`ell_gather_sum` takes :func:`ell_gather_sum_plain` only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
-``ell_gather_sum.launches`` counts kernel launches.
+Everything the kernel needs from the layout is made once, when the layout
+is built, and the partial buffer once per layout and row width; a call
+checks only ``w`` and ``x``. :func:`ell_gather_sum` takes
+:func:`ell_gather_sum_plain` only for CPU tensors; for CUDA tensors it
+launches the kernel or raises. ``ell_gather_sum.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from selfrec_tpu_torch.ops import cuda_build
 
 _lib = None
 _lib_lock = threading.Lock()
+_ready = set()  # devices that passed the capability check with the library loaded
 
 
 def _load():
@@ -41,19 +47,17 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(cuda_build.build("ell_gather.cu"))
             lib.selfrec_ell_gather_sum.restype = ctypes.c_int
-            lib.selfrec_ell_gather_sum.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
+            lib.selfrec_ell_gather_sum.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+                + [ctypes.c_int] * 6 + [ctypes.c_void_p])
             _lib = lib
     return _lib
 
 
 def ell_gather_sum_plain(layout, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain torch, in the same two phases: the
-    (V, P*D) f32 partials by a gather and an einsum, then their sum into
-    each virtual row's destination (``index_add_`` over ``vdst``)."""
+    """The kernel's function in plain torch, independent of its work items:
+    each virtual row's weighted gather (a gather and an einsum), summed into
+    its destination row (``index_add_`` over ``vdst``)."""
     p, v, k = w.shape
     c = x.shape[1]
     g = x[layout.vidx].reshape(v, k, p, c // p).to(torch.float32)
@@ -70,7 +74,7 @@ def _check(layout, w, x):
         raise TypeError(f"ell_gather_sum takes f32 or bf16 rows (n, P*D), got "
                         f"{x.dtype} {tuple(x.shape)}")
     p, v, k = w.shape
-    if (v, k) != (layout.vdst.shape[0], layout.k) or layout.vidx.shape[0] != v * k:
+    if (v, k) != (layout.vdst.shape[0], layout.k):
         raise ValueError(f"weights {tuple(w.shape)} do not fit the layout "
                          f"(V={layout.vdst.shape[0]}, K={layout.k})")
     if x.shape[1] % p:
@@ -78,10 +82,9 @@ def _check(layout, w, x):
     if x.shape[0] < layout.n_src:
         raise ValueError(f"the layout gathers from {layout.n_src} rows, x has "
                          f"{x.shape[0]}")
-    tensors = (layout.vidx, layout.vdst, layout.row_ptr, w, x)
-    if any(t.device != x.device for t in tensors):
+    if not (w.device == x.device == layout.vidx.device):
         raise ValueError("ell_gather_sum operands lie on different devices")
-    if not all(t.is_contiguous() for t in tensors):
+    if not (w.is_contiguous() and x.is_contiguous()):
         raise ValueError("ell_gather_sum needs contiguous operands")
 
 
@@ -96,27 +99,30 @@ def ell_gather_sum(layout, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return ell_gather_sum_plain(layout, w, x)
     if x.device.type != "cuda":
         raise RuntimeError(f"ell_gather_sum: no kernel for device {x.device}")
-    if torch.cuda.get_device_capability(x.device) != (9, 0):
-        raise RuntimeError("ell_gather_sum's kernel is built for sm_90a (Hopper); "
-                           f"device {x.device} is sm_"
-                           "%d%d" % torch.cuda.get_device_capability(x.device))
+    lib = cuda_build.hopper_library(x.device, _ready, _load, "ell_gather_sum")
     p, v, k = w.shape
     c = x.shape[1]
-    if (c // p) % 4:
+    if (c // p) % 4 or x.data_ptr() % (4 * x.element_size()):
         raise ValueError(f"ell_gather_sum's kernel needs a pass width that is a "
-                         f"multiple of 4, got {c // p}")
-    lib = _load()
-    if x.data_ptr() % (4 * x.element_size()):
-        raise ValueError("ell_gather_sum needs x aligned to 4 elements")
-    partial = torch.empty((v, c), dtype=torch.float32, device=x.device)
+                         f"multiple of 4 and x aligned to 4 elements, got {c // p}")
+    n_items, n_long = layout.item_dst.shape[0], layout.long_rows.shape[0]
+    # calls on one layout run in the order of the current stream, so one
+    # partial buffer per width serves them all
+    partial = layout.scratch.get(c)
+    if partial is None:
+        # every short row is one item, so the rest are the long rows' slots
+        n_slots = n_items - (layout.n_rows - n_long)
+        partial = torch.empty((n_slots, c), dtype=torch.float32, device=x.device)
+        layout.scratch[c] = partial
     out = torch.empty((layout.n_rows, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = torch.cuda.current_stream().cuda_stream
         rc = lib.selfrec_ell_gather_sum(
             layout.vidx.data_ptr(), w.data_ptr(), x.data_ptr(),
-            int(x.dtype == torch.bfloat16), layout.row_ptr.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), v, k, layout.n_rows, p, c // p,
-            stream)
+            int(x.dtype == torch.bfloat16), layout.item_ptr.data_ptr(),
+            layout.item_dst.data_ptr(), layout.long_rows.data_ptr(),
+            layout.long_ptr.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            v, k, n_items, n_long, p, c // p, stream)
     if rc != 0:
         raise RuntimeError(f"ell_gather_sum kernel launch failed: CUDA error {rc}")
     ell_gather_sum.launches += 1

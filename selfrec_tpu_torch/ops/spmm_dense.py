@@ -67,7 +67,8 @@ class DenseAdj:
 
     ``a_mm`` is the block the float matmul modes multiply with (``a_ui``
     cast once to ``mm_dtype``); None in int8 mode, which feeds ``a_ui`` to
-    the kernel directly."""
+    the kernel directly, with ``a_iu``, its (I, U) transpose, for the item
+    direction (K1 reads both; :func:`dense_dual.block_transpose`)."""
 
     def __init__(self, a_ui, edge_users, edge_items, edge_w, n_users: int,
                  n_items: int, row_scale=None, col_scale=None, gain=None,
@@ -83,10 +84,12 @@ class DenseAdj:
         self.n_users = n_users
         self.n_items = n_items
         self.n_nodes = n_users + n_items
+        self.a_mm = None
+        self.a_iu = None
         if self.factored and mm_dtype != torch.int8:
             self.a_mm = a_ui.to(mm_dtype)
-        else:
-            self.a_mm = None
+        elif self.factored:
+            self.a_iu = dense_dual.block_transpose(a_ui)
 
     @property
     def factored(self) -> bool:
@@ -101,7 +104,8 @@ class DenseAdj:
         (spmm_dense.py:175-198): the kept-edge Laplacian is a new binary
         incidence with diagonal scalings 1/sqrt over the recomputed degrees
         (reference SGL.py:89-96). ``keep`` is (E,) bool over this block's
-        edge order (see :func:`adj_edge_perm`)."""
+        edge order (see :func:`adj_edge_perm`). In int8 mode the view keeps
+        its own transpose for K1, as every int8 block does."""
         kf = keep.to(torch.float32)
         du = torch.zeros(self.n_users, dtype=torch.float32, device=kf.device)
         di = torch.zeros(self.n_items, dtype=torch.float32, device=kf.device)
@@ -153,6 +157,24 @@ def _try_factor(edge_users, edge_items, w, n_users, n_items):
     return None
 
 
+def check_edge_index(name: str, t: torch.Tensor, host: np.ndarray, n: int) -> None:
+    """Raise, naming the bad positions, unless the index tensor ``t`` on
+    its device equals ``host`` and every entry lies in [0, n).
+
+    One build of the dense block on the card once failed in the
+    ``index_put`` below on an out-of-range index at periodic positions,
+    though the host indices are in range by construction (PERF.md, open
+    questions); this makes such a fault name itself at build time."""
+    back = t.cpu().numpy()
+    bad = np.nonzero((back != host) | (back < 0) | (back >= n))[0]
+    if len(bad):
+        first = bad[:8]
+        raise RuntimeError(
+            f"{name} on {t.device}: {len(bad)} of {len(host)} entries differ from "
+            f"the host array or leave [0, {n}); positions {first.tolist()} hold "
+            f"{back[first].tolist()}, the host has {host[first].tolist()}")
+
+
 def dense_adj_from_edges(edge_users, edge_items, w, n_users: int,
                          n_items: int, dtype=None, device="cuda") -> DenseAdj:
     """Build the dense block on ``device`` from (user, item, weight) edges.
@@ -161,8 +183,12 @@ def dense_adj_from_edges(edge_users, edge_items, w, n_users: int,
     form; anything else, or an explicit ``dtype``, a generic value block.
     Duplicate edges SUM in the generic block, like the sparse paths."""
     device = torch.device(device)
-    eu = torch.as_tensor(np.asarray(edge_users, dtype=np.int64), device=device)
-    ei = torch.as_tensor(np.asarray(edge_items, dtype=np.int64), device=device)
+    eu_host = np.asarray(edge_users, dtype=np.int64)
+    ei_host = np.asarray(edge_items, dtype=np.int64)
+    eu = torch.as_tensor(eu_host, device=device)
+    ei = torch.as_tensor(ei_host, device=device)
+    check_edge_index("edge_users", eu, eu_host, n_users)
+    check_edge_index("edge_items", ei, ei_host, n_items)
     w32 = torch.as_tensor(np.asarray(w, dtype=np.float32), device=device)
     if dtype is None:
         fac = _try_factor(edge_users, edge_items, w, n_users, n_items)
@@ -259,7 +285,7 @@ def _dense_spmm_int8_apply(adj: DenseAdj, x: torch.Tensor) -> torch.Tensor:
     ci = adj.col_scale[:, None]
     yq, ys = _quant_per_channel(ci * xi)
     zq, zs = _quant_per_channel(ru * xu)
-    ou_raw, oi_raw = dense_dual.dual_matmul(adj.a_ui, zq, yq)
+    ou_raw, oi_raw = dense_dual.dual_matmul(adj.a_ui, zq, yq, adj.a_iu)
     out_u = ru * (ou_raw.to(torch.float32) * ys)
     out_i = ci * (oi_raw.to(torch.float32) * zs)
     return torch.cat([out_u, out_i], dim=0).to(x.dtype)

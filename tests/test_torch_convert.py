@@ -18,7 +18,7 @@ def _jax_params():
 
 def test_params_round_trip_exactly():
     jp = {k: np.asarray(v) for k, v in _jax_params().items()}
-    tp = convert.params_from_jax(jp)
+    tp = convert.params_from_jax(jp, device="cpu")
     assert set(tp) == set(jp)
     for k in jp:
         assert tp[k].numpy().dtype == jp[k].dtype
@@ -35,7 +35,7 @@ def test_params_round_trip_exactly():
 def test_round_trip_through_jax_arrays():
     tp = {"w": torch.linspace(-1, 1, 12).reshape(3, 4)}
     jp = {k: jax.numpy.asarray(v) for k, v in convert.params_to_jax(tp).items()}
-    again = convert.params_from_jax({k: np.asarray(v) for k, v in jp.items()})
+    again = convert.params_from_jax({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
     assert torch.equal(again["w"], tp["w"])
 
 
@@ -70,7 +70,17 @@ def test_model_params_cross_unchanged(monkeypatch, tiny_graph_dataset, name):
     own = tm.init_params(torch.Generator().manual_seed(1))
     assert {k: (tuple(v.shape), str(v.dtype)) for k, v in own.items()} == {
         k: (v.shape, f"torch.{v.dtype}") for k, v in jp.items()}
-    tm.set_params(convert.params_from_jax(jp))
+    tm.set_params(convert.params_from_jax(jp, device="cpu"))
     back = convert.params_to_jax(tm.params)
     for k in jp:
         np.testing.assert_array_equal(back[k], jp[k])
+
+
+def test_params_from_jax_defaults_to_the_card(monkeypatch):
+    """Like every entry point of the port, the converter puts weights on the
+    card unless asked for the CPU, and raises where there is no card."""
+    jp = {"w": np.ones((2, 3), np.float32)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.params_from_jax(jp)
+    assert convert.params_from_jax(jp, device="cpu")["w"].device.type == "cpu"

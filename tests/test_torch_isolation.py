@@ -97,15 +97,16 @@ def test_dual_matmul_wrapper_checks_and_counts_only_launches():
     b = torch.ones((4, 5), dtype=torch.int8)
     xu = torch.ones((4, 8), dtype=torch.int8)
     xi = torch.ones((5, 8), dtype=torch.int8)
+    bt = dense_dual.block_transpose(b)
     before = dense_dual.dual_matmul.launches
-    ou, oi = dense_dual.dual_matmul(b, xu, xi)
+    ou, oi = dense_dual.dual_matmul(b, xu, xi, bt)
     assert dense_dual.dual_matmul.launches == before  # CPU: plain version
     assert ou.dtype == torch.int32 and torch.all(ou == 5)
     assert oi.dtype == torch.int32 and torch.all(oi == 4)
-    with pytest.raises(TypeError, match="ROADMAP"):
-        dense_dual.dual_matmul(b, xu.float(), xi)
+    with pytest.raises(TypeError, match="one dtype"):
+        dense_dual.dual_matmul(b, xu.float(), xi, bt)
     with pytest.raises(ValueError):
-        dense_dual.dual_matmul(b, xi, xu)
+        dense_dual.dual_matmul(b, xi, xu, bt)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -188,6 +189,37 @@ def test_ell_gather_refuses_cuda_tensors_it_cannot_launch_on(monkeypatch, failur
     assert ell_gather.ell_gather_sum.launches == before
 
 
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("failure", ["not_hopper", "no_library"])
+def test_dual_matmul_refuses_cuda_tensors_it_cannot_launch_on(monkeypatch, failure,
+                                                              dtype):
+    """As K2's wrapper: both K1 kernels raise where they cannot launch, and
+    never take the plain version for CUDA tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    plain_calls = []
+    monkeypatch.setattr(dense_dual, "dual_matmul_plain", lambda *a: plain_calls.append(a))
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda dev=None: (8, 0) if failure == "not_hopper" else (9, 0))
+
+    def no_library():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(dense_dual, "_load", no_library)
+    before = (dense_dual.dual_matmul.launches, dense_dual.dual_matmul.float_launches)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        b = torch.empty((96, 160), dtype=torch.int8, device="cuda")
+        xu = torch.empty((96, 64), dtype=getattr(torch, dtype), device="cuda")
+        xi = torch.empty((160, 64), dtype=getattr(torch, dtype), device="cuda")
+        bt = torch.empty((160, 96), dtype=torch.int8, device="cuda")
+        with pytest.raises(RuntimeError, match="sm_90a" if failure == "not_hopper"
+                           else "nvcc"):
+            dense_dual.dual_matmul(b, xu, xi, bt)
+    assert plain_calls == []
+    assert (dense_dual.dual_matmul.launches,
+            dense_dual.dual_matmul.float_launches) == before
+
+
 @pytest.mark.cuda
 def test_dual_kernel_matches_plain_on_the_card():
     """On the card's machine, which has no JAX for tests/conftest.py:
@@ -202,11 +234,46 @@ def test_dual_kernel_matches_plain_on_the_card():
         xi = torch.randint(-127, 128, (i, d), generator=gen, device="cuda",
                            dtype=torch.int8)
         before = dense_dual.dual_matmul.launches
-        ou, oi = dense_dual.dual_matmul(b, xu, xi)
+        ou, oi = dense_dual.dual_matmul(b, xu, xi, dense_dual.block_transpose(b))
         torch.cuda.synchronize()
         assert dense_dual.dual_matmul.launches == before + 1
         pu, pi = dense_dual.dual_matmul_plain(b, xu, xi)
         assert torch.equal(ou, pu) and torch.equal(oi, pi)
+
+
+@pytest.mark.cuda
+def test_dual_float_kernel_matches_plain_on_the_card():
+    """K1's float kernel (bf16 and f32 operands) against the plain version
+    at rtol 1e-5 / atol 1e-3 (the JAX package's own tolerance for its float
+    variant, tests/test_dense_dual.py), and its backward against the plain
+    products of the cotangents. Run as the dual kernel's test above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for u, i, d in [(70, 90, 64), (517, 1029, 192), (1000, 1337, 64)]:
+        b = (torch.rand((u, i), generator=gen, device="cuda") < 0.3).to(torch.int8)
+        for dtype in (torch.bfloat16, torch.float32):
+            xu = torch.randn((u, d), generator=gen, device="cuda").to(dtype)
+            xi = torch.randn((i, d), generator=gen, device="cuda").to(dtype)
+            xu.requires_grad_(True)
+            xi.requires_grad_(True)
+            before = dense_dual.dual_matmul.float_launches
+            ou, oi = dense_dual.dual_matmul(b, xu, xi, dense_dual.block_transpose(b))
+            torch.cuda.synchronize()
+            assert dense_dual.dual_matmul.float_launches == before + 1
+            pu, pi = dense_dual.dual_matmul_plain(b, xu.detach(), xi.detach())
+            torch.testing.assert_close(ou, pu, rtol=1e-5, atol=1e-3)
+            torch.testing.assert_close(oi, pi, rtol=1e-5, atol=1e-3)
+            wu, wi = torch.randn_like(ou), torch.randn_like(oi)
+            (ou * wu).sum().add((oi * wi).sum()).backward()
+            assert dense_dual.dual_matmul.float_launches == before + 2
+            # gxu = B @ g_i, gxi = B.T @ g_u, in the operands' dtype: bf16
+            # gradients may differ by one bf16 step of the rounded f32 sum
+            gu, gi = dense_dual.dual_matmul_plain(b, wu.to(dtype), wi.to(dtype))
+            tol = dict(rtol=1e-5, atol=1e-3) if dtype == torch.float32 else dict(
+                rtol=2 ** -7, atol=1e-2)
+            torch.testing.assert_close(xu.grad.float(), gu.to(dtype).float(), **tol)
+            torch.testing.assert_close(xi.grad.float(), gi.to(dtype).float(), **tol)
 
 
 @pytest.mark.cuda

@@ -55,7 +55,8 @@ def _models(monkeypatch, dataset, arm):
     jm.build()
     tm = get_model_class("LightGCN")(ModelConf(_conf_dict()), train, test, device="cpu")
     tm.build()
-    tm.set_params(convert.params_from_jax({k: np.asarray(v) for k, v in jm.params.items()}))
+    tm.set_params(convert.params_from_jax({k: np.asarray(v) for k, v in jm.params.items()},
+                                          device="cpu"))
     assert isinstance(tm.adj, EllAdj if arm == "ell" else DenseAdj)
     assert type(jm.adj).__name__ == type(tm.adj).__name__
     return jm, tm

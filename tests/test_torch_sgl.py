@@ -77,7 +77,7 @@ def _models(monkeypatch, dataset, arm, aug_type=1):
     jm.build()
     tm = SGL(ModelConf(_conf_dict(aug_type)), train, test, device="cpu")
     tm.build()
-    tm.set_params(convert.params_from_jax(_params_np(jm.params)))
+    tm.set_params(convert.params_from_jax(_params_np(jm.params), device="cpu"))
     assert isinstance(tm.adj, EllAdj if arm == "ell" else DenseAdj)
     assert type(tm.adj).__name__ == type(jm.adj).__name__
     return jm, tm

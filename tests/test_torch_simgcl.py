@@ -79,7 +79,7 @@ def _models(monkeypatch, dataset, dtype_name):
     jm.build()
     tm = SimGCL(ModelConf(_conf_dict()), train, test, device="cpu")
     tm.build()
-    tm.set_params(convert.params_from_jax(convert_np(jm.params)))
+    tm.set_params(convert.params_from_jax(convert_np(jm.params), device="cpu"))
     assert tm.adj.factored and tm.adj.mm_dtype == getattr(torch, dtype_name)
     return jm, tm
 

@@ -222,9 +222,11 @@ def test_int8_propagation_calls_the_kernel_wrapper(monkeypatch):
     calls = []
     real = dense_dual.dual_matmul
 
-    def spy(b, xu, xi):
+    def spy(b, xu, xi, bt=None):
+        # the block's kept transpose rides along for the item direction
+        assert bt is not None and torch.equal(bt, b.T)
         calls.append(xu.shape[1])
-        return real(b, xu, xi)
+        return real(b, xu, xi, bt)
 
     monkeypatch.setattr(dense_dual, "dual_matmul", spy)
     x = torch.randn(NU + NI, 192, requires_grad=True)

@@ -215,3 +215,95 @@ def test_bipartite_renorm_weights_and_template_match_jax():
     np.testing.assert_allclose(
         _np(t_ell.ell_spmm(tt.reweight(full), torch.from_numpy(x))),
         np.asarray(jax_ell.ell_spmm(jt.reweight(jfull), jnp.asarray(x))), **TOL)
+
+
+# -- K2's work items ---------------------------------------------------------------
+
+def _sum_over_work_items(layout, w, x):
+    """The kernel's order of work: each virtual row's weighted gather, each
+    item's sum of its virtual rows, short rows' items written into their
+    rows and long rows' partial slots added into theirs."""
+    p, v, k = w.shape
+    c = x.shape[1]
+    g = x[layout.vidx].reshape(v, k, p, c // p).to(torch.float32)
+    per_vrow = torch.einsum("pvk,vkpd->vpd", w, g).reshape(v, c)
+    n_items = layout.item_dst.shape[0]
+    item_of = torch.repeat_interleave(torch.arange(n_items),
+                                      torch.diff(layout.item_ptr).long())
+    items = torch.zeros((n_items, c)).index_add_(0, item_of, per_vrow)
+    out = torch.zeros((layout.n_rows, c))
+    direct = layout.item_dst >= 0
+    out[layout.item_dst[direct].long()] = items[direct]
+    long_of = torch.repeat_interleave(layout.long_rows.long(),
+                                      torch.diff(layout.long_ptr).long())
+    return out.index_add_(0, long_of, items[~direct])
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["random", "power_law"])
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_row_work_covers_every_virtual_row_once_in_order(monkeypatch, kind, k, chunk):
+    monkeypatch.setattr(t_ell, "ROW_CHUNK", chunk)
+    src, dst, _ = _graph(kind, n_rows=150, n_cols=90, nnz=2500, seed=k + chunk)
+    layout, _ = t_ell.build_ell_layout(src, dst, 150, k=k, device="cpu")
+    row_ptr = _np(layout.row_ptr)
+    item_ptr, item_dst, long_rows, long_ptr = t_ell.row_work(row_ptr)
+    v = row_ptr[-1]
+    # items tile [0, V) in order: contiguous, non-decreasing, none too long
+    assert item_ptr[0] == 0 and item_ptr[-1] == v
+    sizes = np.diff(item_ptr)
+    assert np.all(sizes >= 0) and np.all(sizes <= chunk)
+    nv = np.diff(row_ptr)
+    assert np.array_equal(long_rows, np.nonzero(nv > chunk)[0])
+    direct = item_dst >= 0
+    # every short row is one item writing the row, over exactly its run
+    short = np.nonzero(nv <= chunk)[0]
+    assert np.array_equal(item_dst[direct], short)
+    np.testing.assert_array_equal(item_ptr[:-1][direct], row_ptr[short])
+    np.testing.assert_array_equal(item_ptr[1:][direct], row_ptr[short + 1])
+    # long rows' items write partial slots 0, 1, 2, ... in item order, and
+    # each long row adds its own contiguous slots, which cover its run
+    slots = ~item_dst[~direct]
+    np.testing.assert_array_equal(slots, np.arange(len(slots)))
+    assert long_ptr[0] == 0 and long_ptr[-1] == len(slots)
+    starts = item_ptr[:-1][~direct]
+    ends = item_ptr[1:][~direct]
+    for t, r in enumerate(long_rows):
+        s0, s1 = long_ptr[t], long_ptr[t + 1]
+        assert starts[s0] == row_ptr[r] and ends[s1 - 1] == row_ptr[r + 1]
+        np.testing.assert_array_equal(starts[s0 + 1:s1], ends[s0:s1 - 1])
+    # the layout carries the same items
+    for name, got in zip(("item_ptr", "item_dst", "long_rows", "long_ptr"),
+                         (item_ptr, item_dst, long_rows, long_ptr)):
+        np.testing.assert_array_equal(_np(getattr(layout, name)), got)
+
+
+@pytest.mark.parametrize("kind", ["random", "power_law"])
+@pytest.mark.parametrize("k,p", [(1, 1), (4, 3), (16, 1), (16, 3)])
+def test_sum_over_work_items_equals_the_plain_and_jax(kind, k, p):
+    """Summing in the kernel's order of work items gives K2's plain version
+    (per virtual row, independent of the items) and the JAX package's ELL
+    product, pass by pass."""
+    n_rows, n_cols, d = 150, 400, 8
+    src, dst, _ = _graph(kind, n_rows, n_cols, nnz=3000, seed=11 * k + p)
+    rng = np.random.default_rng(k + p)
+    # row 0 owns 10 * k distinct sources: more than ROW_CHUNK virtual rows
+    heavy = rng.choice(n_cols, size=10 * k, replace=False).astype(np.int32)
+    keep = dst != 0
+    src = np.concatenate([heavy, src[keep]])
+    dst = np.concatenate([np.zeros(10 * k, np.int32), dst[keep]])
+    w_edges = rng.normal(size=(p, len(src))).astype(np.float32)
+    x = rng.normal(size=(n_cols, p * d)).astype(np.float32)
+    layout, _ = t_ell.build_ell_layout(src, dst, n_rows, k=k, device="cpu")
+    assert len(layout.long_rows) > 0  # the skewed rows take the long path
+    w = t_ell.ell_weights(layout, torch.from_numpy(w_edges))
+    got = _sum_over_work_items(layout, w, torch.from_numpy(x))
+    np.testing.assert_allclose(_np(got), _np(ell_gather.ell_gather_sum(
+        layout, w, torch.from_numpy(x))), **TOL)
+    for i in range(p):
+        jadj = jax_ell.ell_adj_from_edges(src, dst, w_edges[i], n_rows, n_cols, k=k)
+        want = np.asarray(jax_ell.ell_spmm(jadj, jnp.asarray(x[:, i * d:(i + 1) * d])))
+        np.testing.assert_allclose(_np(got[:, i * d:(i + 1) * d]), want, **TOL)
+    # rows with no edge come out zero
+    empty = np.setdiff1d(np.arange(n_rows), dst)
+    assert not np.any(_np(got)[empty])
