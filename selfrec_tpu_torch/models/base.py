@@ -9,7 +9,8 @@ jitted ``lax.scan``; here it is a Python loop over batches, each step in the
 order of base.py:502-535: sample negatives, loss and grads, Adam step,
 ``step_update``. Everything runs on one explicit ``device``.
 
-Not ported yet: the mesh, checkpoint and profiler hooks (ROADMAP.md).
+Config keys of the JAX package's checkpoint, profiler, mesh and
+multi-process hooks raise at construction (:func:`refuse_unported_keys`).
 """
 
 from __future__ import annotations
@@ -31,6 +32,38 @@ from selfrec_tpu_torch.utils import metrics
 from selfrec_tpu_torch.utils.logger import Log
 
 
+def refuse_unported_keys(conf, device: torch.device):
+    """Raise NotImplementedError, naming ROADMAP.md, for a config key that
+    the JAX package acts on and the port does not: ``checkpoint.dir`` or
+    ``checkpoint.interval`` (resume and periodic saves, base.py:624-647) and
+    ``profile.dir`` (:649-666), ROADMAP §1.2; a ``mesh`` of more than one
+    device (:341-356) and ``distributed`` on (session.py:18-25), §1.8. A
+    1x1 mesh is the JAX package's single-device path and is allowed; an
+    absent size takes the devices left, as ``build_mesh`` does."""
+    for key in ("checkpoint.dir", "checkpoint.interval", "profile.dir"):
+        if conf.contain(key):
+            raise NotImplementedError(
+                f"config key {key!r}: checkpoint/resume and the profiler hook are "
+                "not ported (ROADMAP.md §1.2)")
+    if conf.contain("mesh"):
+        m = conf["mesh"] or {}
+        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+        n_data = int(m.get("data", 0)) or None
+        n_model = int(m.get("model", 0)) or None
+        if n_data is None:
+            n_data = max(1, n_dev // (n_model or 1))
+        if n_model is None:
+            n_model = max(1, n_dev // n_data)
+        if n_data * n_model > 1:
+            raise NotImplementedError(
+                f"config key 'mesh': a {n_data}x{n_model} mesh is not ported "
+                "(ROADMAP.md §1.8); the port runs on one device")
+    if conf.get("distributed"):
+        raise NotImplementedError(
+            "config key 'distributed': multi-process runs are not ported "
+            "(ROADMAP.md §1.8)")
+
+
 class Recommender:
     """Base recommender: config parsing + run pipeline.
 
@@ -40,6 +73,7 @@ class Recommender:
     def __init__(self, conf, training_set, test_set, device=None, **kwargs):
         self.config = conf
         self.device = resolve_device(device)
+        refuse_unported_keys(conf, self.device)
         self.model_name = conf["model"]["name"]
         self.ranking_topns = conf["item.ranking.topN"]
         self.emb_size = int(conf["embedding.size"])

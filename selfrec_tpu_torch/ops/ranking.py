@@ -7,13 +7,17 @@ matmul per user block, rated-item masking as a row gather from a resident
 int8 incidence plus a select (the reference's -1e9 mask value,
 graph_recommender.py:49), and ``torch.topk`` per block.
 
-This slice ports the dense-mask path. The JAX package falls back to a
-scatter mask when the incidence does not fit the budget; here that case
-raises (ROADMAP.md).
+This slice ports the exact top-k over the dense mask. The JAX package's
+knobs (ranking.py:29-72) are read: ``SELFREC_TPU_EVAL_MASK=dense`` builds
+the mask past the budget as there; ``SELFREC_TPU_EVAL_MASK=scatter``, an
+over-budget mask under ``auto`` (the scatter-mask eval) and
+``SELFREC_TPU_EVAL_TOPK`` other than ``exact`` (the approximate top-k)
+raise, naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -22,16 +26,35 @@ import torch
 MASK_VALUE = -1e9  # reference masks rated items with -10e8
 
 
+def check_eval_topk():
+    """Exact top-k is all the port ranks with: ``SELFREC_TPU_EVAL_TOPK``
+    other than ``exact`` (the JAX package's ``approx[:r]``,
+    ranking.py:29-39, which changes the metrics) raises."""
+    mode = os.environ.get("SELFREC_TPU_EVAL_TOPK", "exact")
+    if mode != "exact":
+        raise NotImplementedError(
+            f"SELFREC_TPU_EVAL_TOPK={mode}: the approximate top-k is not ported "
+            "(ROADMAP.md); unset it or set it to 'exact'")
+
+
 def get_rated_dense(data, device) -> torch.Tensor:
     """Device-resident int8 rated-incidence matrix (U, I) for eval masking,
     built once from the rated CSR and cached on ``data``
-    (ranking.py:42-72)."""
+    (ranking.py:42-72). ``SELFREC_TPU_EVAL_MASK``: ``auto`` (default)
+    builds it within ``SELFREC_TPU_DENSE_BUDGET_GB``, ``dense`` past the
+    budget; ``scatter``, and ``auto`` over the budget, raise (the
+    scatter-mask eval is ROADMAP.md §1.4)."""
     from selfrec_tpu_torch.ops.spmm_dense import fits_dense
 
+    mode = os.environ.get("SELFREC_TPU_EVAL_MASK", "auto")
+    if mode == "scatter":
+        raise NotImplementedError(
+            "SELFREC_TPU_EVAL_MASK=scatter: the scatter-mask eval is not ported "
+            "(ROADMAP.md §1.4)")
     cached = getattr(data, "_rated_dense_cache", None)
     if cached is not None and cached.device == torch.device(device):
         return cached
-    if not fits_dense(data.user_num, data.item_num, torch.int8):
+    if mode != "dense" and not fits_dense(data.user_num, data.item_num, torch.int8):
         raise NotImplementedError(
             f"the ({data.user_num}, {data.item_num}) rated mask exceeds "
             "SELFREC_TPU_DENSE_BUDGET_GB; the scatter-mask eval is not "
@@ -128,6 +151,7 @@ def _topk_all_blocks_dense(user_emb, item_emb, uids_all, rated, k: int):
 
 @torch.no_grad()
 def _ranked(data, user_emb, item_emb, k: int, block_size: int):
+    check_eval_topk()
     device = user_emb.device
     plan = get_eval_plan(data, block_size, device)
     rated = get_rated_dense(data, device)

@@ -1,0 +1,110 @@
+"""Config keys and eval knobs that the JAX package acts on are never
+silently ignored by the port: each is honoured as there, or raises and
+names ROADMAP.md."""
+
+import numpy as np
+import pytest
+import torch
+
+from selfrec_tpu_torch.config import ModelConf
+from selfrec_tpu_torch.data.interaction import Interaction
+from selfrec_tpu_torch.models.graph.simgcl import SimGCL
+from selfrec_tpu_torch.ops import ranking
+from selfrec_tpu_torch.utils import metrics
+
+CONF = {"training.set": "<memory>", "test.set": "<memory>",
+        "model": {"name": "SimGCL", "type": "graph"}, "item.ranking.topN": [10],
+        "embedding.size": 16, "max.epoch": 1, "batch.size": 64,
+        "learning.rate": 0.01, "reg.lambda": 0.0001, "output": "unused",
+        "SimGCL": {"n_layer": 2, "lambda": 0.5, "eps": 0.1}}
+
+
+def _model(dataset, **extra):
+    train, test = dataset
+    return SimGCL(ModelConf(dict(CONF, **extra)), train, test, device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [("checkpoint.dir", "/nonexistent/ckpt"),
+                                       ("checkpoint.interval", 2),
+                                       ("profile.dir", "/nonexistent/trace")])
+def test_checkpoint_and_profiler_keys_raise(tiny_graph_dataset, key, value):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1\.2") as err:
+        _model(tiny_graph_dataset, **{key: value})
+    assert key in str(err.value)
+
+
+@pytest.mark.parametrize("mesh", [{"data": 2, "model": 1}, {"data": 1, "model": 2},
+                                  {"data": 4}, {"model": 8}])
+def test_mesh_above_one_device_raises(tiny_graph_dataset, mesh):
+    with pytest.raises(NotImplementedError, match=r"mesh.*ROADMAP\.md §1\.8"):
+        _model(tiny_graph_dataset, mesh=mesh)
+
+
+@pytest.mark.parametrize("mesh", [{"data": 1, "model": 1}, {"data": 1}, {}, None])
+def test_one_by_one_mesh_is_the_single_device_path(tiny_graph_dataset, mesh):
+    model = _model(tiny_graph_dataset, mesh=mesh)
+    assert model.device == torch.device("cpu")
+
+
+def test_distributed_on_raises_and_off_is_allowed(tiny_graph_dataset):
+    with pytest.raises(NotImplementedError, match=r"distributed.*ROADMAP\.md §1\.8"):
+        _model(tiny_graph_dataset, distributed=True)
+    _model(tiny_graph_dataset, distributed=False)
+
+
+# -- eval knobs ----------------------------------------------------------------
+
+@pytest.fixture()
+def eval_case(tiny_graph_dataset):
+    train, test = tiny_graph_dataset
+    data = Interaction(ModelConf(dict(CONF)), train, test)
+    rng = np.random.default_rng(11)
+    ue = torch.from_numpy(rng.normal(size=(data.user_num, 16)).astype(np.float32))
+    ie = torch.from_numpy(rng.normal(size=(data.item_num, 16)).astype(np.float32))
+    return data, ue, ie
+
+
+def _measure(data, ue, ie):
+    top = ranking.topk_ids_from_embeddings(data, ue, ie, 10)
+    offsets, items = data.test_gt_csr()
+    return metrics.ranking_evaluation_ids(offsets, items, top, [10], data.item_num,
+                                          sorted_test_keys=data.test_gt_sorted_keys())
+
+
+@pytest.mark.parametrize("value", ["approx", "approx:0.9", "something"])
+def test_eval_topk_other_than_exact_raises(eval_case, monkeypatch, value):
+    monkeypatch.setenv("SELFREC_TPU_EVAL_TOPK", value)
+    with pytest.raises(NotImplementedError, match="approximate top-k.*ROADMAP.md"):
+        _measure(*eval_case)
+
+
+def test_eval_topk_exact_ranks(eval_case, monkeypatch):
+    monkeypatch.setenv("SELFREC_TPU_EVAL_TOPK", "exact")
+    exact = _measure(*eval_case)
+    monkeypatch.delenv("SELFREC_TPU_EVAL_TOPK")
+    assert _measure(*eval_case) == exact
+
+
+def test_eval_mask_scatter_raises(eval_case, monkeypatch):
+    monkeypatch.setenv("SELFREC_TPU_EVAL_MASK", "scatter")
+    with pytest.raises(NotImplementedError, match=r"scatter-mask eval.*ROADMAP\.md §1\.4"):
+        _measure(*eval_case)
+
+
+def test_eval_mask_auto_over_budget_raises(eval_case, monkeypatch):
+    monkeypatch.setenv("SELFREC_TPU_EVAL_MASK", "auto")
+    monkeypatch.setenv("SELFREC_TPU_DENSE_BUDGET_GB", "0")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _measure(*eval_case)
+
+
+def test_eval_mask_dense_builds_past_the_budget(eval_case, monkeypatch):
+    """As the JAX package (ranking.py:53-64): ``dense`` builds the mask with
+    the budget at 0, and ranks as ``auto`` does within the budget."""
+    data, ue, ie = eval_case
+    auto = _measure(data, ue, ie)
+    data._rated_dense_cache = None
+    monkeypatch.setenv("SELFREC_TPU_EVAL_MASK", "dense")
+    monkeypatch.setenv("SELFREC_TPU_DENSE_BUDGET_GB", "0")
+    assert _measure(data, ue, ie) == auto
+    assert data._rated_dense_cache.shape == (data.user_num, data.item_num)

@@ -209,3 +209,155 @@ def test_edge_index_check_names_the_bad_positions():
         check_edge_index("edge_users", torch.from_numpy(bad), host, 10)
     with pytest.raises(RuntimeError, match=r"positions \[9\]"):
         check_edge_index("edge_items", torch.from_numpy(host.copy()), host, 9)
+
+
+# -- any width: the wrapper's plan and operands, through the kernels' arithmetic --
+
+def _fragment_order():
+    """Contraction index a float-kernel thread reads at each position of
+    16: the 32-bit word of thread t holds B's bytes 4t..4t+3, which the
+    `wgmma` A fragment takes as indices 2t, 2t+1, 2t+8, 2t+9 (the m64k16
+    bf16 register layout), so position 2t + j + 8h reads byte 4t + 2h + j."""
+    order = np.empty(16, np.int64)
+    for t in range(4):
+        for h in range(2):
+            for j in range(2):
+                order[8 * h + 2 * t + j] = 4 * t + 2 * h + j
+    return order
+
+
+def _emulate_kernels(b, xu, xi):
+    """What the CUDA kernels compute, on the CPU, from the operands the
+    wrapper prepares for them (:func:`width_plan`, :func:`k_major`,
+    :func:`float_operand`): per chunk, B (the float kernel: its bytes in
+    fragment order) times the chunk's K-major operand rows; int8 sums
+    exact, float sums in f32 with one sum per f32 piece, added smallest
+    first."""
+    d = xu.shape[1]
+    outs = []
+    for a, x in ((b, xi), (b.T, xu)):
+        if x.dtype == torch.int8:
+            plan = dense_dual.width_plan(d)
+            xt = dense_dual.k_major(torch.nn.functional.pad(x, (0, plan.x_width - d)))
+            chunks = [a.double() @ xt[c * plan.n:(c + 1) * plan.n].double().T
+                      for c in range(plan.chunks)]
+            outs.append(torch.cat(chunks, 1).to(torch.int32)[:, :d])
+            continue
+        plan = dense_dual.width_plan(d, 3 if x.dtype == torch.float32 else 1)
+        xt = dense_dual.float_operand(x, plan)
+        n_pad = xt.shape[1]
+        a_pad = torch.nn.functional.pad(a, (0, n_pad - a.shape[1]))
+        idx = (np.arange(0, n_pad, 16)[:, None] + _fragment_order()[None]).reshape(-1)
+        a_frag = a_pad[:, torch.from_numpy(idx)].float()
+        cols = []
+        for c in range(plan.chunks):
+            s = a_frag @ xt[c * plan.n:(c + 1) * plan.n].float().T  # f32 sums
+            if plan.pieces == 3:
+                s = (s[:, 128:] * 2.0 ** -16 + s[:, 64:128] * 2.0 ** -8) + s[:, :64]
+            cols.append(s)
+        outs.append(torch.cat(cols, 1)[:, :d])
+    return tuple(outs)
+
+
+@pytest.mark.parametrize("d", [8, 32, 100, 200])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_width_plan_matches_pallas_interpret(dtype, d):
+    """Any D: the kernels' arithmetic over the wrapper's padded, chunked
+    (and, for floats, permuted and split) operands against the TPU kernel
+    in interpret mode, which pads D itself. int8 exact; floats at the JAX
+    test's tolerance."""
+    u, i = 70, 150
+    if dtype == "int8":
+        b, xu, xi = _int8_case(u, i, d, seed=d)
+    else:
+        b, xu, xi = _float_case(u, i, d, seed=d, dtype=dtype)
+    ju, ji = jax_dual._dual_call(jnp.asarray(b), jnp.asarray(xu, dtype=dtype),
+                                 jnp.asarray(xi, dtype=dtype), interpret=True)
+    tdt = getattr(torch, dtype)
+    eu, ei = _emulate_kernels(torch.from_numpy(b), torch.from_numpy(xu).to(tdt),
+                              torch.from_numpy(xi).to(tdt))
+    assert eu.shape == (u, d) and ei.shape == (i, d)
+    if dtype == "int8":
+        np.testing.assert_array_equal(eu.numpy(), np.asarray(ju))
+        np.testing.assert_array_equal(ei.numpy(), np.asarray(ji))
+    else:
+        np.testing.assert_allclose(eu.numpy(), np.asarray(ju), **FLOAT_TOL)
+        np.testing.assert_allclose(ei.numpy(), np.asarray(ji), **FLOAT_TOL)
+
+
+@pytest.mark.parametrize("d,plan", [(1, (64, 1, 1)), (64, (64, 1, 1)), (100, (128, 1, 1)),
+                                    (192, (192, 1, 1)), (200, (128, 2, 1)),
+                                    (320, (192, 2, 1))])
+def test_width_plan_pads_to_64_and_chunks_at_most_192(d, plan):
+    p = dense_dual.width_plan(d)
+    assert tuple(p) == plan and p.out_width >= d and p.out_width - d < 64 * p.chunks
+    f = dense_dual.width_plan(d, 3)
+    assert (f.n, f.chunks) == (192, -(-d // 64)) and f.out_width == 64 * f.chunks
+    with pytest.raises(ValueError):
+        dense_dual.width_plan(0)
+
+
+def _awkward_f32(seed):
+    """Normal values over many magnitudes, +-0, subnormals, the smallest
+    normal, values near the largest finite f32 and residuals that cross
+    bf16's subnormal range."""
+    rng = np.random.default_rng(seed)
+    fin = np.finfo(np.float32)
+    special = np.array([0.0, -0.0, fin.tiny, -fin.tiny, fin.max, -fin.max, fin.smallest_subnormal,
+                        -fin.smallest_subnormal, 3 * fin.smallest_subnormal, 1.0, -1.0,
+                        1 + fin.eps, 2.0 ** -120 * (1 + 2 * fin.eps)], np.float32)
+    mags = rng.normal(size=4000) * np.exp2(rng.integers(-149, 127, 4000).astype(np.float64))
+    sub = (rng.integers(-2 ** 23 + 1, 2 ** 23, 500) * fin.smallest_subnormal.astype(
+        np.float64))
+    big = rng.uniform(-1, 1, 500) * float(fin.max)
+    x = np.concatenate([special, mags.astype(np.float32), sub.astype(np.float32),
+                        big.astype(np.float32)])
+    return x[np.isfinite(x)].astype(np.float32)
+
+
+def test_split_f32_pieces_add_up_exactly():
+    x = torch.from_numpy(_awkward_f32(0))
+    hi, mid, lo = dense_dual.split_f32(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert all(bool(torch.isfinite(p).all()) for p in (hi, mid, lo))
+    total = hi.double() + mid.double() * 2.0 ** -8 + lo.double() * 2.0 ** -16
+    assert torch.equal(total, x.double()), int((total != x.double()).sum())
+    # the sign of zero is kept in the largest piece
+    assert torch.equal(torch.signbit(hi[:2]), torch.tensor([False, True]))
+
+
+def test_split_f32_pieces_in_the_operand():
+    """float_operand lays the pieces out side by side in groups of 64
+    columns, with zero rows and columns past n and D."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(37, 100)).astype(np.float32))
+    plan = dense_dual.width_plan(100, 3)
+    op = dense_dual.float_operand(x, plan)
+    assert op.shape == (plan.x_width, 128) and op.dtype == torch.bfloat16 and op.is_contiguous()
+    inv = np.argsort(np.concatenate([16 * q + _fragment_order() for q in range(8)]))
+    w = op[:, torch.from_numpy(inv)].T.double()  # (128, 3 * 128), contraction order restored
+    pieces = w.view(128, 2, 3, 64)
+    total = pieces[:, :, 0] + pieces[:, :, 1] * 2.0 ** -8 + pieces[:, :, 2] * 2.0 ** -16
+    torch.testing.assert_close(total.reshape(128, 128)[:37, :100], x.double(), rtol=0, atol=0)
+    assert not bool(total.reshape(128, 128)[37:].any() | total.reshape(128, 128)[:, 100:].any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_sums_are_within_1e5_of_the_f32_product(dtype):
+    """The kernel's method (bf16 pieces, one f32 sum a piece, added
+    smallest first) against the correctly rounded product, relative to
+    each output row's magnitude, at a contraction as long as yelp2018's
+    block rows hold on average and more."""
+    rng = np.random.default_rng(8)
+    u, i, d = 64, 4000, 64
+    b = (rng.random((u, i)) < 0.5).astype(np.int8)
+    xu = rng.normal(size=(u, d)).astype(np.float32)
+    xi = rng.normal(size=(i, d)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    tb = torch.from_numpy(b)
+    tu, ti = torch.from_numpy(xu).to(tdt), torch.from_numpy(xi).to(tdt)
+    eu, ei = _emulate_kernels(tb, tu, ti)
+    for got, a, x in ((eu, tb, ti), (ei, tb.T, tu)):
+        ref = a.double() @ x.double()
+        scale = a.double() @ x.double().abs()
+        assert float(((got.double() - ref).abs() / scale).max()) < 1e-5

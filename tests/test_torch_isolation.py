@@ -220,60 +220,94 @@ def test_dual_matmul_refuses_cuda_tensors_it_cannot_launch_on(monkeypatch, failu
             dense_dual.dual_matmul.float_launches) == before
 
 
+def _check_int8_on_the_card(gen, u, i, d):
+    b = (torch.rand((u, i), generator=gen, device="cuda") < 0.3).to(torch.int8)
+    xu = torch.randint(-127, 128, (u, d), generator=gen, device="cuda", dtype=torch.int8)
+    xi = torch.randint(-127, 128, (i, d), generator=gen, device="cuda", dtype=torch.int8)
+    before = dense_dual.dual_matmul.launches
+    ou, oi = dense_dual.dual_matmul(b, xu, xi, dense_dual.block_transpose(b))
+    torch.cuda.synchronize()
+    assert dense_dual.dual_matmul.launches == before + 1
+    pu, pi = dense_dual.dual_matmul_plain(b, xu, xi)
+    assert ou.shape == (u, d) and oi.shape == (i, d)
+    assert torch.equal(ou, pu) and torch.equal(oi, pi)
+
+
+def _check_float_on_the_card(gen, u, i, d, dtype):
+    """Forward within rtol 1e-5 / atol 1e-3 of the plain version (the JAX
+    package's own tolerance for its float variant, tests/test_dense_dual.py),
+    and the backward against the plain products of the cotangents."""
+    b = (torch.rand((u, i), generator=gen, device="cuda") < 0.3).to(torch.int8)
+    xu = torch.randn((u, d), generator=gen, device="cuda").to(dtype).requires_grad_(True)
+    xi = torch.randn((i, d), generator=gen, device="cuda").to(dtype).requires_grad_(True)
+    plan = dense_dual.width_plan(d, 3 if dtype == torch.float32 else 1)
+    assert torch.equal(dense_dual.float_operand(xu.detach(), plan),
+                       dense_dual.float_operand_plain(xu.detach(), plan))
+    before = dense_dual.dual_matmul.float_launches
+    ou, oi = dense_dual.dual_matmul(b, xu, xi, dense_dual.block_transpose(b))
+    torch.cuda.synchronize()
+    assert dense_dual.dual_matmul.float_launches == before + 1
+    pu, pi = dense_dual.dual_matmul_plain(b, xu.detach(), xi.detach())
+    torch.testing.assert_close(ou, pu, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(oi, pi, rtol=1e-5, atol=1e-3)
+    wu, wi = torch.randn_like(ou), torch.randn_like(oi)
+    (ou * wu).sum().add((oi * wi).sum()).backward()
+    assert dense_dual.dual_matmul.float_launches == before + 2
+    # gxu = B @ g_i, gxi = B.T @ g_u, in the operands' dtype: bf16
+    # gradients may differ by one bf16 step of the rounded f32 sum
+    gu, gi = dense_dual.dual_matmul_plain(b, wu.to(dtype), wi.to(dtype))
+    tol = dict(rtol=1e-5, atol=1e-3) if dtype == torch.float32 else dict(
+        rtol=2 ** -7, atol=1e-2)
+    torch.testing.assert_close(xu.grad.float(), gu.to(dtype).float(), **tol)
+    torch.testing.assert_close(xi.grad.float(), gi.to(dtype).float(), **tol)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
 @pytest.mark.cuda
 def test_dual_kernel_matches_plain_on_the_card():
     """On the card's machine, which has no JAX for tests/conftest.py:
     ``python -m pytest --noconftest -m cuda tests/test_torch_isolation.py``."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for u, i, d in [(70, 90, 64), (517, 1029, 192), (1000, 1337, 64)]:
-        b = (torch.rand((u, i), generator=gen, device="cuda") < 0.3).to(torch.int8)
-        xu = torch.randint(-127, 128, (u, d), generator=gen, device="cuda",
-                           dtype=torch.int8)
-        xi = torch.randint(-127, 128, (i, d), generator=gen, device="cuda",
-                           dtype=torch.int8)
-        before = dense_dual.dual_matmul.launches
-        ou, oi = dense_dual.dual_matmul(b, xu, xi, dense_dual.block_transpose(b))
-        torch.cuda.synchronize()
-        assert dense_dual.dual_matmul.launches == before + 1
-        pu, pi = dense_dual.dual_matmul_plain(b, xu, xi)
-        assert torch.equal(ou, pu) and torch.equal(oi, pi)
+        _check_int8_on_the_card(gen, u, i, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 128, 200])
+def test_dual_kernel_any_width_matches_plain_on_the_card(d):
+    """K1 int8 at widths outside {64, 192}: padded to 64, 128 and two
+    128-wide chunks; equal to the plain version bit for bit."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for u, i in [(70, 90), (517, 1029)]:
+        _check_int8_on_the_card(gen, u, i, d)
 
 
 @pytest.mark.cuda
 def test_dual_float_kernel_matches_plain_on_the_card():
-    """K1's float kernel (bf16 and f32 operands) against the plain version
-    at rtol 1e-5 / atol 1e-3 (the JAX package's own tolerance for its float
-    variant, tests/test_dense_dual.py), and its backward against the plain
-    products of the cotangents. Run as the dual kernel's test above."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    """K1's float kernel (bf16 and f32 operands), forward and backward. Run
+    as the dual kernel's test above."""
+    _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(1)
     for u, i, d in [(70, 90, 64), (517, 1029, 192), (1000, 1337, 64)]:
-        b = (torch.rand((u, i), generator=gen, device="cuda") < 0.3).to(torch.int8)
         for dtype in (torch.bfloat16, torch.float32):
-            xu = torch.randn((u, d), generator=gen, device="cuda").to(dtype)
-            xi = torch.randn((i, d), generator=gen, device="cuda").to(dtype)
-            xu.requires_grad_(True)
-            xi.requires_grad_(True)
-            before = dense_dual.dual_matmul.float_launches
-            ou, oi = dense_dual.dual_matmul(b, xu, xi, dense_dual.block_transpose(b))
-            torch.cuda.synchronize()
-            assert dense_dual.dual_matmul.float_launches == before + 1
-            pu, pi = dense_dual.dual_matmul_plain(b, xu.detach(), xi.detach())
-            torch.testing.assert_close(ou, pu, rtol=1e-5, atol=1e-3)
-            torch.testing.assert_close(oi, pi, rtol=1e-5, atol=1e-3)
-            wu, wi = torch.randn_like(ou), torch.randn_like(oi)
-            (ou * wu).sum().add((oi * wi).sum()).backward()
-            assert dense_dual.dual_matmul.float_launches == before + 2
-            # gxu = B @ g_i, gxi = B.T @ g_u, in the operands' dtype: bf16
-            # gradients may differ by one bf16 step of the rounded f32 sum
-            gu, gi = dense_dual.dual_matmul_plain(b, wu.to(dtype), wi.to(dtype))
-            tol = dict(rtol=1e-5, atol=1e-3) if dtype == torch.float32 else dict(
-                rtol=2 ** -7, atol=1e-2)
-            torch.testing.assert_close(xu.grad.float(), gu.to(dtype).float(), **tol)
-            torch.testing.assert_close(xi.grad.float(), gi.to(dtype).float(), **tol)
+            _check_float_on_the_card(gen, u, i, d, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [64, 100, 192])
+def test_dual_float_kernel_any_width_on_the_card(d, dtype):
+    """K1's float kernel at D 64, 100 (padded to 128; f32: two chunks) and
+    192 (f32: three chunks), forward and backward."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    _check_float_on_the_card(gen, 300, 700, d, getattr(torch, dtype))
 
 
 @pytest.mark.cuda
@@ -281,8 +315,7 @@ def test_ell_gather_kernel_matches_plain_on_the_card():
     """K2 against its plain version at rtol/atol 2e-5: ragged layouts at
     K 4 and 16, one and three passes, f32 and bf16 rows. Run as the dual
     kernel's test above."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for k, p, d, dtype in [(4, 1, 64, torch.float32), (16, 3, 64, torch.float32),
                            (16, 1, 64, torch.bfloat16), (16, 2, 20, torch.float32)]:
