@@ -56,6 +56,25 @@ temp 0.2), ELL layout (SELFREC_TPU_DENSE=0), and LightGCN on it:
 10. SGL's dense int8x8 arm: 10 steps over per-epoch refactored views, 12
     K1 launches a step.
 
+XSimGCL, DirectAU and MixGCF on the dense int8x8 block, and MF:
+11. reference phase: on a small graph, XSimGCL on the card agrees with the
+    CPU: embeddings, one batch loss with fed noise, top-20 lists.
+12. XSimGCL (bench.py:715-727: n_layer 3, l_star 1, lambda 0.2, eps 0.2,
+    tau 0.15): 50 steps, 6 K1 launches a step (each hop forward and
+    backward); five more under the profiler; one eval, 3 launches.
+13. DirectAU (bench.py:764-775: gamma 2, n_layers 3): 10 steps, 6 K1
+    launches a step; five more under the profiler; one eval.
+14. MixGCF (conf/MixGCF.yaml: n_layer 3, n_negs 64): 10 steps, 6 K1
+    launches a step, with (2048, 64, 64) mixing tensors and 131,072
+    sampler lanes a step; five more under the profiler.
+15. MF: 10 steps and one eval, with no K1 or K2 launch; five more steps
+    under the profiler.
+16. resume phase: on a small graph, XSimGCL on the card for 4 epochs, and
+    for 2 then resumed to 4 from checkpoint.interval 2; the parameters
+    agree within rtol 2e-3 / atol 2e-4 (the JAX package's resume test,
+    tests/test_checkpoint.py:53-58; the largest difference is printed).
+    The continuous run's profile.dir trace must show a K1 launch.
+
 Every path sets the launch counts to 0 just before it and reads them just
 after. Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Any failure
@@ -469,6 +488,9 @@ def graph_conf(name, extra, **top):
 
 SIMGCL = {"n_layer": 3, "lambda": 0.5, "eps": 0.1}
 SGL_CONF = {"n_layer": 2, "lambda": 0.1, "drop_rate": 0.1, "aug_type": 1, "temp": 0.2}
+XSIMGCL = {"n_layer": 3, "l_star": 1, "lambda": 0.2, "eps": 0.2, "tau": 0.15}
+DIRECTAU = {"gamma": 2, "n_layers": 3}
+MIXGCF = {"n_layer": 3, "n_negs": 64}
 
 
 def check_close(tag, what, a, b, rtol, atol):
@@ -528,6 +550,23 @@ def small_batch(data, gen, nb=256, n_valid=200):
             "mask": (torch.arange(nb) < n_valid).float()}
 
 
+def check_int8_alike(tag, out):
+    """Card against CPU for (user_emb, item_emb, loss) through int8
+    propagation. Quantization is a step function: a last-bit difference in
+    a reduction (norms, means) can move a value across a rounding boundary
+    and change it by one quantum (max|column|/127 before rescaling). So at
+    most 0.1% of the values may leave rtol 1e-4 / atol 1e-6, and none by
+    more than 1% of the largest magnitude."""
+    import torch
+
+    for a, b, what in zip(out["cuda"], out["cpu"], ("user_emb", "item_emb", "loss")):
+        off = ~torch.isclose(a, b, rtol=1e-4, atol=1e-6)
+        worst = float((a - b).abs().max())
+        if float(off.float().mean()) > 1e-3 or worst > 1e-2 * float(b.abs().max()):
+            raise RuntimeError(f"{tag}: {what} on the card differs from the CPU in "
+                               f"{int(off.sum())} values, by up to {worst}")
+
+
 def simgcl_reference_phase():
     """Small graph: the card's SimGCL (int8x8 dense) agrees with the same
     weights on the CPU."""
@@ -548,17 +587,7 @@ def simgcl_reference_phase():
             loss = m.batch_loss(m.params, {k: v.to(dev) for k, v in batch.items()},
                                 noise=[[x.to(dev) for x in pair] for pair in noise])
         out[dev] = (ue.cpu(), ie.cpu(), loss.cpu())
-    # int8 quantization is a step function: a last-bit difference in a
-    # reduction (norms, means) can move a value across a rounding boundary
-    # and change it by one quantum (max|column|/127 before rescaling). So at
-    # most 0.1% of the values may leave rtol 1e-4 / atol 1e-6, and none by
-    # more than 1% of the largest magnitude.
-    for a, b, what in zip(out["cuda"], out["cpu"], ("user_emb", "item_emb", "loss")):
-        off = ~torch.isclose(a, b, rtol=1e-4, atol=1e-6)
-        worst = float((a - b).abs().max())
-        if float(off.float().mean()) > 1e-3 or worst > 1e-2 * float(b.abs().max()):
-            raise RuntimeError(f"reference phase: {what} on the card differs from "
-                               f"the CPU in {int(off.sum())} values, by up to {worst}")
+    check_int8_alike("reference phase", out)
     id_off, n_users = check_topk_alike("reference phase", models, out["cpu"][0],
                                        out["cpu"][1])
     log(f"[reference] SimGCL small graph U={models['cpu'].data.user_num} "
@@ -607,13 +636,104 @@ def sgl_reference_phase():
         f"alike ({100 * id_off:.2f}% of ids differ, all within score ties)")
 
 
-def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0):
-    """The trainer's step over the first ``n_batches`` batches of epoch 0,
-    after epoch_setup, with ``counter`` (a kernel wrapper) set to 0 just
-    before and read just after. Checks finite losses and the launch count
-    (exactly ``per_step`` a step, or at least one). Returns the launches."""
+def xsimgcl_reference_phase():
+    """Small graph: the card's XSimGCL (int8x8 dense) agrees with the same
+    weights on the CPU: embeddings (the clean pass), one batch loss with
+    fed noise (the perturbed pass), top-20 lists."""
     import torch
 
+    from selfrec_tpu_torch.models.graph.xsimgcl import XSimGCL
+
+    set_layout(dense=True)
+    models = small_pair(XSimGCL, graph_conf("XSimGCL", XSIMGCL, **{"batch.size": 256}))
+    gen = torch.Generator().manual_seed(6)
+    n = models["cpu"].data.user_num + models["cpu"].data.item_num
+    noise = [torch.rand((n, 64), generator=gen) for _ in range(XSIMGCL["n_layer"])]
+    batch = small_batch(models["cpu"].data, gen)
+    out = {}
+    for dev, m in models.items():
+        with torch.no_grad():
+            ue, ie = m.embeddings()
+            loss = m.batch_loss(m.params, {k: v.to(dev) for k, v in batch.items()},
+                                noise=[x.to(dev) for x in noise])
+        out[dev] = (ue.cpu(), ie.cpu(), loss.cpu())
+    check_int8_alike("XSimGCL reference phase", out)
+    id_off, n_users = check_topk_alike("XSimGCL reference phase", models, out["cpu"][0],
+                                       out["cpu"][1])
+    log(f"[reference] XSimGCL small graph: card agrees with the CPU (<= 0.1% of values "
+        f"beyond rtol 1e-4 / atol 1e-6), loss {float(out['cuda'][2]):.6f} vs "
+        f"{float(out['cpu'][2]):.6f}; top-20 lists of {n_users} users score alike "
+        f"({100 * id_off:.2f}% of ids differ, all within score ties)")
+
+
+def resume_phase():
+    """Small graph: XSimGCL on the card for 4 epochs, and for 2 epochs then
+    resumed to 4 from its checkpoint (checkpoint.interval 2), under
+    results/; the parameters agree within the JAX package's resume test's
+    rtol 2e-3 / atol 2e-4 (tests/test_checkpoint.py:53-58). The continuous
+    run's profile.dir trace (its second epoch) names K1's kernel. The
+    runs' own prints go to results/ too."""
+    import contextlib
+    import shutil
+
+    import torch
+
+    from selfrec_tpu_torch.models.graph.xsimgcl import XSimGCL
+    from selfrec_tpu_torch.utils.synth import synth_graph_mapped
+
+    set_layout(dense=True)
+    train, test = synth_graph_mapped(600, 900, 12000, seed=5)
+    root = os.path.join("results", "chip_smoke", f"resume_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    def run(tag, epochs, **extra):
+        conf = graph_conf("XSimGCL", XSIMGCL, **{"max.epoch": epochs, "checkpoint.interval": 2,
+                                                 "checkpoint.dir": os.path.join(root, tag),
+                                                 **extra})
+        model = XSimGCL(conf, train, test, device="cuda")
+        model.build()
+        with open(os.path.join(root, f"{tag}_{epochs}.log"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            model.train()
+        torch.cuda.synchronize()
+        return model
+
+    try:
+        t0 = time.time()
+        trace_dir = os.path.join(root, "trace")
+        full = run("full", 4, **{"profile.dir": trace_dir})
+        run("resumed", 2)
+        resumed = run("resumed", 4)
+        worst = 0.0
+        for k in full.params:
+            a, b = resumed.params[k].detach(), full.params[k].detach()
+            worst = max(worst, float((a - b).abs().max()))
+            check_close("resume phase", f"{k} after resuming at epoch 2", a, b, 2e-3, 2e-4)
+        traces = os.listdir(trace_dir)
+        if len(traces) != 1:
+            raise RuntimeError(f"resume phase: profile.dir holds {traces}, expected one trace")
+        with open(os.path.join(trace_dir, traces[0])) as f:
+            k1_in_trace = f.read().count("dual_s8_kernel")
+        if k1_in_trace == 0:
+            raise RuntimeError("resume phase: the profile.dir trace shows no K1 launch")
+        log(f"[resume] XSimGCL small graph U={full.data.user_num} I={full.data.item_num}: "
+            f"2 epochs + resume to 4 agree with 4 epochs (max |diff| {worst:.3g}, rtol 2e-3 "
+            f"/ atol 2e-4); trace {traces[0]} names dual_s8_kernel {k1_in_trace} times; "
+            f"{time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0):
+    """The trainer's step over the first ``n_batches`` batches of epoch 0,
+    after epoch_setup, with ``counter`` (a kernel wrapper, or a tuple of
+    them whose counts add) set to 0 just before and read just after. Checks
+    finite losses and the launch count (exactly ``per_step`` a step, 0
+    included, or at least one). Returns the launches."""
+    import torch
+
+    counters = counter if isinstance(counter, tuple) else (counter,)
     users, items, masks = model.epoch_batches(0)
     torch.cuda.synchronize()
     t_setup = time.time()
@@ -622,7 +742,8 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0):
     setup_ms = 1e3 * (time.time() - t_setup)
     m = min(n_batches, users.shape[0] - profile_steps)
     torch.cuda.synchronize()
-    counter.launches = 0
+    for c in counters:
+        c.launches = 0
     t0 = time.time()
     first = model.train_batches(users[:1], items[:1], masks[:1])
     torch.cuda.synchronize()
@@ -630,13 +751,13 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0):
     rest = model.train_batches(users[1:m], items[1:m], masks[1:m])
     torch.cuda.synchronize()
     t2 = time.time()
-    launches = counter.launches
+    launches = sum(c.launches for c in counters)
     losses = torch.cat([first, rest]).cpu()
     if not bool(torch.isfinite(losses).all()):
         raise RuntimeError(f"{tag} train: non-finite losses {losses.tolist()}")
-    if launches <= 0 or (per_step is not None and launches != per_step * m):
+    if (launches != per_step * m) if per_step is not None else launches <= 0:
         raise RuntimeError(f"{tag} train: {launches} kernel launches in {m} steps, "
-                           f"expected {per_step or 'some'} a step")
+                           f"expected {'some' if per_step is None else per_step} a step")
     log(f"[train {tag}] {m} batches x {model.batch_size}: loss {float(losses[0]):.6f} -> "
         f"{float(losses[-1]):.6f}, {t2 - t0:.3f} s, "
         f"{m * model.batch_size / (t2 - t0):.1f} examples/s (first step "
@@ -650,29 +771,32 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0):
     return launches
 
 
-def eval_path(tag, model, counter, profile=False):
+def eval_path(tag, model, counter, profile=False, expect=None):
     """compute_embeddings plus one fast_evaluation over all test users, with
-    the kernel's count set to 0 just before; it must launch once a layer."""
+    the kernel's count (or the counts of a tuple of wrappers) set to 0 just
+    before; it must launch ``expect`` times, by default once a layer."""
     import torch
 
     from selfrec_tpu_torch.utils import metrics
 
+    counters = counter if isinstance(counter, tuple) else (counter,)
+    expect = model.n_layers if expect is None else expect
     torch.cuda.synchronize()
-    counter.launches = 0
+    for c in counters:
+        c.launches = 0
     t0 = time.time()
     model.user_emb, model.item_emb = model.embeddings()
     measure = model.fast_evaluation(0)
     torch.cuda.synchronize()
     eval_ms = 1e3 * (time.time() - t0)
-    launches = counter.launches
+    launches = sum(c.launches for c in counters)
     ue, ie = model.user_emb, model.item_emb
     if (tuple(ue.shape) != (model.data.user_num, 64)
             or tuple(ie.shape) != (model.data.item_num, 64)
             or not bool(torch.isfinite(ue).all() & torch.isfinite(ie).all())):
         raise RuntimeError(f"{tag} eval: embeddings of the wrong shape or not finite")
-    if launches != model.n_layers:
-        raise RuntimeError(f"{tag} eval: {launches} kernel launches, expected "
-                           f"{model.n_layers}")
+    if launches != expect:
+        raise RuntimeError(f"{tag} eval: {launches} kernel launches, expected {expect}")
     perf = metrics.parse_measure(measure)
     if not all(math.isfinite(v) for v in perf.values()):
         raise RuntimeError(f"{tag} eval: metrics not finite: {perf}")
@@ -695,7 +819,7 @@ def yelp_model(cls, name, extra, data, dense):
     model = cls(graph_conf(name, extra), *data, device="cuda")
     model.build()
     torch.cuda.synchronize()
-    log(f"[setup] {name}: {model.adj!r}, {model.data.n_edges} edges, "
+    log(f"[setup] {name}: {getattr(model, 'adj', 'no adjacency')!r}, {model.data.n_edges} edges, "
         f"{len(model.data.test_user_ids)} test users, {time.time() - t0:.1f} s")
     return model
 
@@ -709,9 +833,13 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     os.environ["SELFREC_TPU_DENSE_DTYPE"] = "int8"
     from selfrec_tpu_torch.device import disable_tf32
+    from selfrec_tpu_torch.models.graph.directau import DirectAU
     from selfrec_tpu_torch.models.graph.lightgcn import LightGCN
+    from selfrec_tpu_torch.models.graph.mf import MF
+    from selfrec_tpu_torch.models.graph.mixgcf import MixGCF
     from selfrec_tpu_torch.models.graph.sgl import SGL
     from selfrec_tpu_torch.models.graph.simgcl import SimGCL
+    from selfrec_tpu_torch.models.graph.xsimgcl import XSimGCL
     from selfrec_tpu_torch.ops import cuda_build, dense_dual, ell_gather
     from selfrec_tpu_torch.utils.synth import synth_graph_mapped
 
@@ -790,6 +918,40 @@ def main():
         per_step=3 * 2 * model.n_layers)
     del model
     torch.cuda.empty_cache()
+
+    # XSimGCL, DirectAU and MixGCF on the dense int8x8 block: each hop one
+    # K1 launch forward and one backward -----------------------------------
+    xsimgcl_reference_phase()
+    model = yelp_model(XSimGCL, "XSimGCL", XSIMGCL, data, dense=True)
+    k1_paths["xsimgcl_train"] = train_path(
+        "XSimGCL int8x8", model, dense_dual.dual_matmul, N_TRAIN_BATCHES,
+        per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
+    k1_paths["xsimgcl_eval"] = eval_path("XSimGCL int8x8", model, dense_dual.dual_matmul)
+    del model
+    torch.cuda.empty_cache()
+    model = yelp_model(DirectAU, "DirectAU", DIRECTAU, data, dense=True)
+    k1_paths["directau_train"] = train_path(
+        "DirectAU int8x8", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
+        per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
+    k1_paths["directau_eval"] = eval_path("DirectAU int8x8", model, dense_dual.dual_matmul)
+    del model
+    torch.cuda.empty_cache()
+    model = yelp_model(MixGCF, "MixGCF", MIXGCF, data, dense=True)
+    k1_paths["mixgcf_train"] = train_path(
+        "MixGCF int8x8", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
+        per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
+    del model
+    torch.cuda.empty_cache()
+
+    # MF: no adjacency, so no K1 or K2 launch ------------------------------
+    model = yelp_model(MF, "MF", {}, data, dense=True)
+    no_kernel = (dense_dual.dual_matmul, ell_gather.ell_gather_sum)
+    k1_paths["mf_train"] = train_path("MF", model, no_kernel, N_SHORT_BATCHES, per_step=0,
+                                      profile_steps=N_PROFILE_STEPS)
+    k1_paths["mf_eval"] = eval_path("MF", model, no_kernel, expect=0)
+    del model
+    torch.cuda.empty_cache()
+    resume_phase()
 
     k1_main = next(r for r in k1_rows if r["tag"] == "yelp" and r["shape"][2] == 192)
     k1f_main = next(r for r in k1f_rows if r["tag"] == "yelp" and r["shape"][2] == 64

@@ -12,14 +12,14 @@ from typing import Dict, Optional, Tuple
 
 # name -> (module path or None when not ported yet, class name, model type)
 MODEL_REGISTRY: Dict[str, Tuple[Optional[str], str, str]] = {
-    "MF": (None, "MF", "graph"),
+    "MF": ("selfrec_tpu_torch.models.graph.mf", "MF", "graph"),
     "LightGCN": ("selfrec_tpu_torch.models.graph.lightgcn", "LightGCN", "graph"),
-    "DirectAU": (None, "DirectAU", "graph"),
+    "DirectAU": ("selfrec_tpu_torch.models.graph.directau", "DirectAU", "graph"),
     "SimGCL": ("selfrec_tpu_torch.models.graph.simgcl", "SimGCL", "graph"),
-    "XSimGCL": (None, "XSimGCL", "graph"),
+    "XSimGCL": ("selfrec_tpu_torch.models.graph.xsimgcl", "XSimGCL", "graph"),
     "SGL": ("selfrec_tpu_torch.models.graph.sgl", "SGL", "graph"),
     "NCL": (None, "NCL", "graph"),
-    "MixGCF": (None, "MixGCF", "graph"),
+    "MixGCF": ("selfrec_tpu_torch.models.graph.mixgcf", "MixGCF", "graph"),
     "BUIR": (None, "BUIR", "graph"),
     "SelfCF": (None, "SelfCF", "graph"),
     "SSL4Rec": (None, "SSL4Rec", "graph"),

@@ -9,8 +9,11 @@ jitted ``lax.scan``; here it is a Python loop over batches, each step in the
 order of base.py:502-535: sample negatives, loss and grads, Adam step,
 ``step_update``. Everything runs on one explicit ``device``.
 
-Config keys of the JAX package's checkpoint, profiler, mesh and
-multi-process hooks raise at construction (:func:`refuse_unported_keys`).
+``checkpoint.dir`` / ``checkpoint.interval`` (resume and periodic saves,
+:mod:`selfrec_tpu_torch.utils.checkpoint`) and ``profile.dir`` (a
+``torch.profiler`` trace of one epoch) act as in the JAX package
+(base.py:624-690). Its mesh and multi-process keys raise at construction
+(:func:`refuse_unported_keys`).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from selfrec_tpu_torch.data import io
 from selfrec_tpu_torch.data.interaction import Interaction
 from selfrec_tpu_torch.device import resolve_device
 from selfrec_tpu_torch.ops import ranking, sampling
+from selfrec_tpu_torch.ops.init import xavier_uniform
 from selfrec_tpu_torch.ops.precision import set_compute_dtype
 from selfrec_tpu_torch.utils import metrics
 from selfrec_tpu_torch.utils.logger import Log
@@ -34,17 +38,11 @@ from selfrec_tpu_torch.utils.logger import Log
 
 def refuse_unported_keys(conf, device: torch.device):
     """Raise NotImplementedError, naming ROADMAP.md, for a config key that
-    the JAX package acts on and the port does not: ``checkpoint.dir`` or
-    ``checkpoint.interval`` (resume and periodic saves, base.py:624-647) and
-    ``profile.dir`` (:649-666), ROADMAP §1.2; a ``mesh`` of more than one
-    device (:341-356) and ``distributed`` on (session.py:18-25), §1.8. A
-    1x1 mesh is the JAX package's single-device path and is allowed; an
-    absent size takes the devices left, as ``build_mesh`` does."""
-    for key in ("checkpoint.dir", "checkpoint.interval", "profile.dir"):
-        if conf.contain(key):
-            raise NotImplementedError(
-                f"config key {key!r}: checkpoint/resume and the profiler hook are "
-                "not ported (ROADMAP.md §1.2)")
+    the JAX package acts on and the port does not: a ``mesh`` of more than
+    one device (base.py:341-356) and ``distributed`` on (session.py:18-25),
+    ROADMAP §1.8. A 1x1 mesh is the JAX package's single-device path and is
+    allowed; an absent size takes the devices left, as ``build_mesh``
+    does."""
     if conf.contain("mesh"):
         m = conf["mesh"] or {}
         n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -266,9 +264,10 @@ class TorchGraphRecommender(GraphRecommender):
     device (the single-device counterpart of ``JAXGraphRecommender``).
 
     Subclasses implement:
-      init_params(generator) -> dict of leaf tensors
       compute_embeddings(params) -> (user_emb, item_emb)
       batch_loss(params, batch, generator) -> scalar loss
+    and may override ``init_params(generator)`` (default: the user and item
+    embedding tables every ported model trains)
     ``params`` is a plain dict of tensors; ``torch.optim.Adam`` stands in
     for ``optax.adam`` (same defaults: betas (0.9, 0.999), eps 1e-8).
     """
@@ -288,10 +287,18 @@ class TorchGraphRecommender(GraphRecommender):
         self.optimizer = None
         self.aux: Dict[str, Any] = {}
         self._edges_dev = None
+        self._trace = None  # the torch.profiler session profile.dir opened
 
     # -- subclass contract ---------------------------------------------------
     def init_params(self, generator) -> Dict[str, torch.Tensor]:
-        raise NotImplementedError
+        """Xavier-uniform user and item tables, drawn from ``generator``
+        (every reference graph model's init, e.g. reference MF.py:52-57)."""
+        return {
+            "user_emb": xavier_uniform(generator, (self.data.user_num, self.emb_size),
+                                       device=self.device),
+            "item_emb": xavier_uniform(generator, (self.data.item_num, self.emb_size),
+                                       device=self.device),
+        }
 
     def compute_embeddings(self, params) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
@@ -402,9 +409,72 @@ class TorchGraphRecommender(GraphRecommender):
     def embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.compute_embeddings(self.params)
 
+    # -- checkpoint/resume and the profiler hook (base.py:624-666) ------------
+    def _checkpoint_conf(self):
+        ckpt_dir = self.config.get("checkpoint.dir")
+        interval = int(self.config.get("checkpoint.interval", 5))
+        return ckpt_dir, interval
+
+    def _maybe_resume(self) -> int:
+        """Restore the latest checkpoint under ``checkpoint.dir``, if any;
+        returns the epoch to start from."""
+        from selfrec_tpu_torch.utils import checkpoint as ckpt
+
+        ckpt_dir, _ = self._checkpoint_conf()
+        if not ckpt_dir:
+            return 0
+        step, state = ckpt.restore_checkpoint(ckpt_dir)
+        if step is None:
+            return 0
+        ckpt.apply_train_state(self, state)
+        print(f"Resumed from checkpoint step {step} in {ckpt_dir}")
+        return step
+
+    def _maybe_checkpoint(self, epoch: int):
+        from selfrec_tpu_torch.utils import checkpoint as ckpt
+
+        ckpt_dir, interval = self._checkpoint_conf()
+        if ckpt_dir and (epoch + 1) % interval == 0:
+            ckpt.save_checkpoint(ckpt_dir, epoch + 1, ckpt.train_state(self))
+
+    def _profiler_hook(self, epoch: int, start_epoch: int):
+        """``torch.profiler`` trace of one steady-state epoch, the second of
+        this process (the first pays the kernel builds and allocator
+        warm-up), into ``profile.dir``: host activity, and the card's too
+        when the model runs on one."""
+        profile_dir = self.config.get("profile.dir")
+        if not profile_dir:
+            return
+        if epoch == start_epoch + 1:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._trace = profile(activities=activities)
+            self._trace.start()
+            self._trace_epoch = epoch
+        elif self._trace is not None:
+            self._stop_trace(profile_dir)
+
+    def _stop_trace(self, profile_dir):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._trace.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"{self.model_name}_epoch{self._trace_epoch + 1}"
+                                         f"_{os.getpid()}.pt.trace.json")
+        self._trace.export_chrome_trace(path)
+        self._trace = None
+        print(f"Profiler trace written to {path}")
+
     def train(self):
+        """Resume, then per epoch: the profiler hook, the epoch, eval, and a
+        checkpoint every ``checkpoint.interval`` epochs (base.py:668-690)."""
+        start_epoch = self._maybe_resume()
         n_examples = self.data.n_edges
-        for epoch in range(self.max_epoch):
+        for epoch in range(start_epoch, self.max_epoch):
+            self._profiler_hook(epoch, start_epoch)
             t0 = time()
             losses = self.run_epoch(epoch)
             dt = time() - t0
@@ -417,6 +487,9 @@ class TorchGraphRecommender(GraphRecommender):
             self.user_emb, self.item_emb = self.embeddings()
             if self.should_evaluate(epoch):
                 self.fast_evaluation(epoch)
+            self._maybe_checkpoint(epoch)
+        if self._trace is not None:
+            self._stop_trace(self.config.get("profile.dir"))
         if self.best_user_emb is not None:
             self.user_emb, self.item_emb = self.best_user_emb, self.best_item_emb
 

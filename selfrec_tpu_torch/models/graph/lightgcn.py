@@ -15,7 +15,6 @@ import torch
 from selfrec_tpu_torch.models.base import TorchGraphRecommender
 from selfrec_tpu_torch.ops import losses
 from selfrec_tpu_torch.ops.graph import lightgcn_propagate
-from selfrec_tpu_torch.ops.init import xavier_uniform
 
 
 class LightGCN(TorchGraphRecommender):
@@ -27,14 +26,6 @@ class LightGCN(TorchGraphRecommender):
         args = conf[self.model_name] if conf.contain(self.model_name) else {}
         self.n_layers = int(args.get("n_layer", 2))
         self.adj = self.make_adj()
-
-    def init_params(self, generator):
-        return {
-            "user_emb": xavier_uniform(generator, (self.data.user_num, self.emb_size),
-                                       device=self.device),
-            "item_emb": xavier_uniform(generator, (self.data.item_num, self.emb_size),
-                                       device=self.device),
-        }
 
     def compute_embeddings(self, params):
         ego = torch.cat([params["user_emb"], params["item_emb"]], dim=0)

@@ -32,7 +32,6 @@ from selfrec_tpu_torch.ops import losses
 from selfrec_tpu_torch.ops.graph import (bipartite_renorm_weights,
                                          build_bipartite_ell_template,
                                          lightgcn_propagate, spmm, spmm_packed)
-from selfrec_tpu_torch.ops.init import xavier_uniform
 from selfrec_tpu_torch.ops.sampling import unique_with_mask
 from selfrec_tpu_torch.ops.spmm_dense import DenseAdj, adj_edge_perm
 
@@ -71,14 +70,6 @@ class SGL(TorchGraphRecommender):
                 self._edge_users_dev, self._edge_items_dev,
                 torch.ones(self.data.n_edges, dtype=torch.bool, device=self.device),
                 self.data.user_num, self.data.item_num)
-
-    def init_params(self, generator):
-        return {
-            "user_emb": xavier_uniform(generator, (self.data.user_num, self.emb_size),
-                                       device=self.device),
-            "item_emb": xavier_uniform(generator, (self.data.item_num, self.emb_size),
-                                       device=self.device),
-        }
 
     def _ego(self, params):
         return torch.cat([params["user_emb"], params["item_emb"]], dim=0)

@@ -16,7 +16,6 @@ import torch
 from selfrec_tpu_torch.models.base import TorchGraphRecommender
 from selfrec_tpu_torch.ops import losses
 from selfrec_tpu_torch.ops.graph import fused_simgcl_propagate, lightgcn_propagate
-from selfrec_tpu_torch.ops.init import xavier_uniform
 from selfrec_tpu_torch.ops.sampling import unique_with_mask
 
 
@@ -30,14 +29,6 @@ class SimGCL(TorchGraphRecommender):
         self.eps = float(args.get("eps", 0.1))
         self.n_layers = int(args.get("n_layer", 2))
         self.adj = self.make_adj()
-
-    def init_params(self, generator):
-        return {
-            "user_emb": xavier_uniform(generator, (self.data.user_num, self.emb_size),
-                                       device=self.device),
-            "item_emb": xavier_uniform(generator, (self.data.item_num, self.emb_size),
-                                       device=self.device),
-        }
 
     def _ego(self, params):
         return torch.cat([params["user_emb"], params["item_emb"]], dim=0)

@@ -69,6 +69,42 @@ def lightgcn_propagate(adj, ego: torch.Tensor, n_layers: int,
     return out
 
 
+def _noised(e: torch.Tensor, u: torch.Tensor, eps: float) -> torch.Tensor:
+    """``e + sign(e) * eps * rownorm(u)``, u a U[0,1) draw (SimGCL.py:85-88)."""
+    u = u / (torch.linalg.norm(u, dim=-1, keepdim=True) + 1e-12)
+    return e + torch.sign(e) * u * eps
+
+
+def perturbed_propagate(adj, ego: torch.Tensor, n_layers: int, eps: float,
+                        generator: Optional[torch.Generator] = None,
+                        cl_layer: Optional[int] = None,
+                        noise: Optional[Sequence[torch.Tensor]] = None):
+    """SimGCL/XSimGCL noise-perturbed propagation (graph.py:140-172).
+
+    After each hop adds ``sign(e) * eps * rownorm(U[0,1))``, then averages
+    layers 1..K. With ``cl_layer`` also returns the layer-``cl_layer``
+    embedding (XSimGCL.py:93-101; ``cl_layer=0`` is the unperturbed ego).
+
+    Hop k's (n, D) draw comes from ``generator``, one ``torch.rand`` a hop
+    in hop order (the JAX package splits its key into ``n_layers`` keys, one
+    a hop), or from ``noise[k]`` when given, so tests can feed JAX's draws."""
+    layers: List[torch.Tensor] = []
+    e = ego
+    cl_emb = ego
+    for k in range(n_layers):
+        e = spmm(adj, e)
+        u = noise[k] if noise is not None else torch.rand(
+            e.shape, generator=generator, device=e.device, dtype=e.dtype)
+        e = _noised(e, u, eps)
+        layers.append(e)
+        if cl_layer is not None and k == cl_layer - 1:
+            cl_emb = e
+    out = torch.mean(torch.stack(layers, dim=0), dim=0)
+    if cl_layer is not None:
+        return out, cl_emb
+    return out
+
+
 def fused_simgcl_propagate(adj, ego: torch.Tensor, n_layers: int, eps: float,
                            generator: Optional[torch.Generator] = None,
                            noise: Optional[Sequence[Sequence[torch.Tensor]]] = None):
@@ -96,8 +132,7 @@ def fused_simgcl_propagate(adj, ego: torch.Tensor, n_layers: int, eps: float,
             else:
                 u = torch.rand(p.shape, generator=generator, device=p.device,
                                dtype=p.dtype)
-            u = u / (torch.linalg.norm(u, dim=-1, keepdim=True) + 1e-12)
-            parts.append(p + torch.sign(p) * u * eps)
+            parts.append(_noised(p, u, eps))
         x = torch.cat(parts, dim=1)
         acc = acc + x
     out = acc / n_layers

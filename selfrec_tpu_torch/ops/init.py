@@ -12,12 +12,13 @@ import math
 import torch
 
 
-def xavier_uniform(generator: torch.Generator, shape, device=None,
+def xavier_uniform(generator: torch.Generator, shape, *, device,
                    dtype=torch.float32, gain: float = 1.0) -> torch.Tensor:
     """torch.nn.init.xavier_uniform_ semantics: for a 2D (rows, cols) tensor
     fan_in=cols, fan_out=rows, bound = gain*sqrt(6/(fan_in+fan_out)).
     Every reference model initialises its embedding tables this way
-    (e.g. reference/model/graph/MF.py:52-57)."""
+    (e.g. reference/model/graph/MF.py:52-57). ``device`` has no default:
+    the tables land where the caller says, never on the CPU by omission."""
     fan_out, fan_in = shape[0], shape[-1]
     bound = gain * math.sqrt(6.0 / (fan_in + fan_out))
     u = torch.rand(shape, generator=generator, device=device, dtype=dtype)

@@ -1,5 +1,5 @@
-"""Training objectives (the part of ``selfrec_tpu/ops/losses.py:19-96`` that
-SimGCL needs; the remaining losses come with their models).
+"""Training objectives (the part of ``selfrec_tpu/ops/losses.py:19-195`` that
+the ported models need; the remaining losses come with their models).
 
 Every loss takes an optional ``mask`` so fixed-shape padded batches reduce
 over valid rows only; with a full batch the results match the reference
@@ -9,6 +9,7 @@ reference/util/loss_torch.py:9).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -67,3 +68,55 @@ def infonce(view1, view2, temperature: float, b_cos: bool = True, mask=None):
     log_probs = F.log_softmax(logits, dim=1)
     diag = torch.diagonal(log_probs)
     return -_masked_mean(diag, mask)
+
+
+def alignment_loss_masked(x, y, mask=None):
+    """DirectAU alignment over valid rows: mean ||x^ - y^||^2 of the
+    l2-normalised pairs (losses.py:134-137)."""
+    x, y = l2_normalize(x), l2_normalize(y)
+    return _masked_mean(torch.sum((x - y) ** 2, dim=-1), mask)
+
+
+def _strict_upper(n: int, device=None) -> torch.Tensor:
+    """(n, n) boolean i<j mask (losses.py:140-150): the pair matrix stays a
+    masked full-matrix reduction, not a triangle gather."""
+    r = torch.arange(n, device=device)
+    return r[:, None] < r[None, :]
+
+
+def _pair_d2(x: torch.Tensor) -> torch.Tensor:
+    """Squared distances of the l2-normalised rows, (n, n)."""
+    x = l2_normalize(x)
+    sq = torch.sum(x * x, dim=-1)
+    return sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)
+
+
+def uniformity_loss(x, t: int = 2):
+    """DirectAU uniformity: log E exp(-t ||xi-xj||^2) over the strict i<j
+    pairs of ``torch.pdist`` (reference DirectAU.py:42-45; losses.py:153-165)."""
+    d2 = _pair_d2(x)
+    n = x.shape[0]
+    logits = torch.where(_strict_upper(n, x.device), -t * d2,
+                         torch.full_like(d2, -float("inf")))
+    return torch.logsumexp(logits.reshape(-1), dim=0) - math.log(n * (n - 1) // 2)
+
+
+def uniformity_loss_masked(x, mask, t: int = 2):
+    """Uniformity over the strict i<j pairs of valid (non-pad) rows only
+    (losses.py:168-195): the reference's exact-size ``torch.pdist`` with
+    one static shape. Fewer than 2 valid rows give no pair: the JAX package
+    returns 0 with a zero gradient there (PARITY.md; the reference's
+    logsumexp over nothing is -inf and poisons its backward), and so does
+    this, through the same double ``where``: the all-invalid branch reduces
+    over every pair, so no -inf reaches the backward."""
+    d2 = _pair_d2(x)
+    n = x.shape[0]
+    m = mask.to(x.dtype)
+    pair_valid = _strict_upper(n, x.device) & (m[:, None] * m[None, :] > 0)
+    n_pairs = torch.sum(pair_valid.to(x.dtype))
+    has_pairs = n_pairs > 0
+    safe_valid = torch.where(has_pairs, pair_valid, torch.ones_like(pair_valid))
+    logits = torch.where(safe_valid, -t * d2, torch.full_like(d2, -float("inf")))
+    lse = torch.logsumexp(logits.reshape(-1), dim=0) - torch.log(
+        torch.clamp(n_pairs, min=1.0))
+    return torch.where(has_pairs, lse, torch.zeros_like(lse))

@@ -1,0 +1,135 @@
+"""Checkpoint/resume and the profiler hook of the port's trainer
+(selfrec_tpu_torch.utils.checkpoint, TorchGraphRecommender.train), as
+tests/test_checkpoint.py and tests/test_untested_surfaces.py hold the JAX
+package's.
+
+A run stopped after epoch 2 and resumed to epoch 4 equals a continuous
+4-epoch run exactly on the CPU: the epoch shuffles are functions of (seed,
+epoch), the step generator's state is restored, and every CPU op here is
+deterministic. (chip_smoke.py makes the same comparison on the card, held
+to the JAX test's rtol 2e-3 / atol 2e-4.)
+"""
+
+import json
+import os
+
+import pytest
+import torch
+
+from selfrec_tpu_torch.config import ModelConf
+from selfrec_tpu_torch.models import get_model_class
+from selfrec_tpu_torch.utils import checkpoint as ckpt
+
+CASES = {
+    "MF": ({}, {}),
+    "XSimGCL-ell": ({"n_layer": 2, "l_star": 1, "lambda": 0.2, "eps": 0.2, "tau": 0.15},
+                    {"SELFREC_TPU_DENSE": "0"}),
+    "XSimGCL-int8": ({"n_layer": 2, "l_star": 1, "lambda": 0.2, "eps": 0.2, "tau": 0.15},
+                     {"SELFREC_TPU_DENSE": "1", "SELFREC_TPU_DENSE_DTYPE": "int8"}),
+}
+
+
+def _conf(tmp_path, case, max_epoch, **extra):
+    name = case.split("-")[0]
+    conf = {
+        "training.set": "<memory>", "test.set": "<memory>",
+        "model": {"name": name, "type": "graph"},
+        "item.ranking.topN": [5, 10], "embedding.size": 16, "max.epoch": max_epoch,
+        "batch.size": 64, "learning.rate": 0.05, "reg.lambda": 0.0001,
+        "output": str(tmp_path / "out"), "seed": 42, name: CASES[case][0],
+        "checkpoint.dir": str(tmp_path / "ckpt"), "checkpoint.interval": 2,
+    }
+    conf.update(extra)
+    return ModelConf(conf)
+
+
+def _run(dataset, conf):
+    train, test = dataset
+    model = get_model_class(conf["model"]["name"])(conf, train, test, device="cpu")
+    model.build()
+    model.train()
+    return model
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_resume_at_epoch_two_equals_a_continuous_run(tiny_graph_dataset, tmp_path,
+                                                     monkeypatch, case):
+    for k, v in CASES[case][1].items():
+        monkeypatch.setenv(k, v)
+    full = _run(tiny_graph_dataset, _conf(tmp_path / "full", case, 4))
+    first = _run(tiny_graph_dataset, _conf(tmp_path, case, 2))
+    assert ckpt.latest_step(str(tmp_path / "ckpt")) == 2
+    resumed = _run(tiny_graph_dataset, _conf(tmp_path, case, 4))
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_2", "step_4"]
+    assert not torch.equal(first.params["user_emb"], full.params["user_emb"])
+    for k in full.params:
+        assert torch.equal(resumed.params[k], full.params[k]), k
+    for a, b in zip(resumed.optimizer.state_dict()["state"].values(),
+                    full.optimizer.state_dict()["state"].values()):
+        assert float(a["step"]) == float(b["step"]) == 4 * -(-first.data.n_edges // 64)
+        assert torch.equal(a["exp_avg"], b["exp_avg"])
+        assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+    assert torch.equal(resumed.generator.get_state(), full.generator.get_state())
+    assert resumed.best_performance == full.best_performance
+    assert torch.equal(resumed.best_user_emb, full.best_user_emb)
+
+
+def test_checkpoint_preserves_best_tracking(tiny_graph_dataset, tmp_path):
+    """As tests/test_checkpoint.py:61-78: best_performance and the best
+    embeddings survive resume."""
+    m1 = _run(tiny_graph_dataset, _conf(tmp_path, "MF", 2))
+    assert m1.best_performance
+    train, test = tiny_graph_dataset
+    m2 = get_model_class("MF")(_conf(tmp_path, "MF", 4), train, test, device="cpu")
+    m2.build()
+    assert m2._maybe_resume() == 2
+    assert m2.best_performance[0] == m1.best_performance[0]
+    assert m2.best_performance[1] == m1.best_performance[1]
+    assert torch.equal(m2.best_user_emb, m1.best_user_emb)
+    assert torch.equal(m2.best_item_emb, m1.best_item_emb)
+
+
+def test_state_is_tensors_on_the_cpu_loadable_with_weights_only(tiny_graph_dataset,
+                                                                tmp_path):
+    m = _run(tiny_graph_dataset, _conf(tmp_path, "MF", 2))
+    path = tmp_path / "ckpt" / "step_2" / ckpt.STATE_FILE
+    state = torch.load(path, weights_only=True)
+    assert set(state) == {"params", "optimizer", "generator", "aux", "best"}
+    assert state["generator"].dtype == torch.uint8
+    assert state["best"]["perf"].tolist()[0] == m.best_performance[0]
+    assert all(v.device.type == "cpu" for v in state["params"].values())
+    step, again = ckpt.restore_checkpoint(str(tmp_path / "ckpt"))
+    assert step == 2 and torch.equal(again["params"]["item_emb"], m.params["item_emb"])
+    assert ckpt.restore_checkpoint(str(tmp_path / "nothing")) == (None, None)
+
+
+def test_a_fresh_directory_starts_at_epoch_zero(tiny_graph_dataset, tmp_path):
+    train, test = tiny_graph_dataset
+    m = get_model_class("MF")(_conf(tmp_path, "MF", 1), train, test, device="cpu")
+    m.build()
+    assert m._maybe_resume() == 0
+
+
+@pytest.mark.parametrize("max_epoch", [2, 3])
+def test_profile_dir_writes_a_trace_and_leaves_none_active(tiny_graph_dataset, tmp_path,
+                                                          max_epoch):
+    """The second epoch of the process is traced; the trace stops before the
+    third epoch or at the end of train()."""
+    profile_dir = tmp_path / "trace"
+    conf = _conf(tmp_path, "MF", max_epoch, **{"profile.dir": str(profile_dir)})
+    m = _run(tiny_graph_dataset, conf)
+    assert m._trace is None
+    assert not torch.autograd.profiler._is_profiler_enabled
+    files = os.listdir(profile_dir)
+    assert len(files) == 1 and files[0].startswith("MF_epoch2_")
+    with open(profile_dir / files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("Optimizer.step" in e.get("name", "") for e in events)
+
+
+def test_resume_traces_the_second_epoch_it_runs(tiny_graph_dataset, tmp_path):
+    _run(tiny_graph_dataset, _conf(tmp_path, "MF", 2))
+    conf = _conf(tmp_path, "MF", 4, **{"profile.dir": str(tmp_path / "trace")})
+    _run(tiny_graph_dataset, conf)
+    files = os.listdir(tmp_path / "trace")
+    assert len(files) == 1 and files[0].startswith("MF_epoch4_")

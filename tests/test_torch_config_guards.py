@@ -1,6 +1,9 @@
 """Config keys and eval knobs that the JAX package acts on are never
-silently ignored by the port: each is honoured as there, or raises and
-names ROADMAP.md."""
+silently ignored by the port: each is honoured as there (the checkpoint
+and profiler keys), or raises and names ROADMAP.md (a mesh above one
+device, ``distributed``, the eval knobs the port lacks)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -24,13 +27,28 @@ def _model(dataset, **extra):
     return SimGCL(ModelConf(dict(CONF, **extra)), train, test, device="cpu")
 
 
-@pytest.mark.parametrize("key,value", [("checkpoint.dir", "/nonexistent/ckpt"),
-                                       ("checkpoint.interval", 2),
-                                       ("profile.dir", "/nonexistent/trace")])
-def test_checkpoint_and_profiler_keys_raise(tiny_graph_dataset, key, value):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1\.2") as err:
-        _model(tiny_graph_dataset, **{key: value})
-    assert key in str(err.value)
+@pytest.mark.parametrize("key,epochs,written", [
+    ("checkpoint.dir", 5, ["step_5"]),  # the default interval, 5 epochs
+    ("checkpoint.interval", 2, ["step_1", "step_2"]),
+    ("profile.dir", 2, ["SimGCL_epoch2"])])
+def test_checkpoint_and_profiler_keys_are_honoured(tiny_graph_dataset, tmp_path, key,
+                                                   epochs, written):
+    """Each key acts as in the JAX package (base.py:624-690): checkpoints
+    under ``checkpoint.dir`` every ``checkpoint.interval`` epochs (default
+    5), a trace of the second epoch in ``profile.dir``."""
+    extra = {"max.epoch": epochs, "output": str(tmp_path / "out")}
+    if key.startswith("checkpoint"):
+        extra["checkpoint.dir"] = str(tmp_path / "written")
+    if key == "checkpoint.interval":
+        extra[key] = 1
+    if key == "profile.dir":
+        extra[key] = str(tmp_path / "written")
+    model = _model(tiny_graph_dataset, **extra)
+    model.build()
+    model.train()
+    found = sorted(name.split("_")[0] + "_" + name.split("_")[1]
+                   for name in os.listdir(tmp_path / "written"))
+    assert found == written
 
 
 @pytest.mark.parametrize("mesh", [{"data": 2, "model": 1}, {"data": 1, "model": 2},

@@ -41,7 +41,7 @@ def test_round_trip_through_jax_arrays():
 
 def test_xavier_uniform_has_the_jax_bound_and_shape():
     """Same distribution as the JAX initialiser (different draws)."""
-    t = xavier_uniform(torch.Generator().manual_seed(0), (400, 64))
+    t = xavier_uniform(torch.Generator().manual_seed(0), (400, 64), device="cpu")
     j = np.asarray(jax_xavier(jax.random.PRNGKey(0), (400, 64)))
     bound = np.sqrt(6.0 / (400 + 64))
     assert t.shape == j.shape and t.dtype == torch.float32
@@ -49,7 +49,13 @@ def test_xavier_uniform_has_the_jax_bound_and_shape():
     assert abs(float(t.std()) - float(j.std())) < 0.02 * bound
 
 
-@pytest.mark.parametrize("name", ["SimGCL", "LightGCN", "SGL"])
+def test_xavier_uniform_needs_an_explicit_device():
+    with pytest.raises(TypeError, match="device"):
+        xavier_uniform(torch.Generator().manual_seed(0), (4, 8))
+
+
+@pytest.mark.parametrize("name", ["SimGCL", "LightGCN", "SGL", "MF", "XSimGCL",
+                                  "DirectAU", "MixGCF"])
 def test_model_params_cross_unchanged(monkeypatch, tiny_graph_dataset, name):
     """A JAX model's parameters install into the port's model of the same
     name (same keys, shapes and dtypes as its own init) and come back equal."""

@@ -76,10 +76,10 @@ def test_registry_lists_every_model_and_refuses_unported():
     from selfrec_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
 
     assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
-    for name in ("SimGCL", "LightGCN", "SGL"):
+    for name in ("SimGCL", "LightGCN", "SGL", "MF", "XSimGCL", "DirectAU", "MixGCF"):
         assert get_model_class(name).__name__ == name
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model_class("XSimGCL")
+        get_model_class("NCL")
     with pytest.raises(KeyError):
         get_model_class("NoSuchModel")
 
