@@ -75,6 +75,29 @@ XSimGCL, DirectAU and MixGCF on the dense int8x8 block, and MF:
     tests/test_checkpoint.py:53-58; the largest difference is printed).
     The continuous run's profile.dir trace must show a K1 launch.
 
+SelfCF and BUIR in the dense bf16 mode (K1's float kernel: bf16 operands
+forward, f32 cotangents backward), pinned around their builds as
+bench.py's _pinned_bf16 does; BUIR on ELL; NCL int8x8; SSL4Rec:
+17. dense float reference phase: on a small graph, SelfCF, and BUIR with
+    fed rates and keep draws, on the card against the CPU: embeddings,
+    one loss, its grads and the top-20 lists.
+18. SelfCF (bench.py:786-805: n_layer 2, tau 0.05): 50 steps, 4 K1 float
+    launches a step (2 hops forward, 2 backward) and 2 operand passes
+    each; five more under the profiler; one eval, 2 launches.
+19. BUIR (bench.py:690-712: n_layer 2, drop_rate 0.2, tau 0.995): 10
+    steps over two dropout views a step, 6 K1 float launches a step
+    (online 2 forward and 2 backward, target 2 forward); five more under
+    the profiler; one eval, 2 launches. Then BUIR's ELL arm: K2 at P = 2
+    against its plain version (its row of the K2 checks), and 10 steps, 4
+    K2 launches a step.
+20. NCL (bench.py:651-676: n_layer 3, ssl_reg 1e-6, proto_reg 1e-7, tau
+    0.05, hyper_layers 1, alpha 1.5, num_clusters 2000), int8x8: 10
+    warm-up steps, the E-step timed on its own (2 tables x 25 Lloyd
+    iterations at k 2000), 10 prototype-phase steps, each 6 K1 int8
+    launches; one eval, 3 launches.
+21. SSL4Rec (bench.py:777-783: tau 0.07, alpha 0.1, drop 0.1): 10 steps
+    and one eval, with no K1 or K2 launch.
+
 Every path sets the launch counts to 0 just before it and reads them just
 after. Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Any failure
@@ -491,6 +514,24 @@ SGL_CONF = {"n_layer": 2, "lambda": 0.1, "drop_rate": 0.1, "aug_type": 1, "temp"
 XSIMGCL = {"n_layer": 3, "l_star": 1, "lambda": 0.2, "eps": 0.2, "tau": 0.15}
 DIRECTAU = {"gamma": 2, "n_layers": 3}
 MIXGCF = {"n_layer": 3, "n_negs": 64}
+SELFCF = {"n_layer": 2, "tau": 0.05}
+BUIR_CONF = {"n_layer": 2, "drop_rate": 0.2, "tau": 0.995}
+NCL_CONF = {"n_layer": 3, "ssl_reg": 1e-6, "proto_reg": 1e-7, "tau": 0.05,
+            "hyper_layers": 1, "alpha": 1.5, "num_clusters": 2000}
+SSL4REC = {"tau": 0.07, "alpha": 0.1, "drop": 0.1}
+
+
+class pinned_bf16:
+    """The dense bf16 mode around a build, as bench.py's _pinned_bf16 pins
+    it for BUIR and SelfCF: SELFREC_TPU_DENSE_DTYPE unset (its default is
+    bfloat16) inside, restored after."""
+
+    def __enter__(self):
+        self.saved = os.environ.pop("SELFREC_TPU_DENSE_DTYPE", None)
+
+    def __exit__(self, *exc):
+        if self.saved is not None:
+            os.environ["SELFREC_TPU_DENSE_DTYPE"] = self.saved
 
 
 def check_close(tag, what, a, b, rtol, atol):
@@ -725,15 +766,134 @@ def resume_phase():
         shutil.rmtree(root, ignore_errors=True)
 
 
-def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0):
+def check_float_alike(tag, out):
+    """Card against CPU in the dense bf16 mode, tensor by tensor. Both round
+    each hop's operand to bf16 and sum exact products in f32, in another
+    order, so a value next to a bf16 rounding boundary can round the other
+    way (2^-8 relative) and carry into the next hop: at most 0.1% of a
+    tensor's values may leave rtol 1e-4 / atol 1e-5 of its largest
+    magnitude, none by more than 2^-7 of it. Returns the largest difference
+    relative to the largest magnitude."""
+    import torch
+
+    worst_share = 0.0
+    for what, a in out["cuda"].items():
+        b = out["cpu"][what]
+        scale = float(b.abs().max())
+        off = ~torch.isclose(a, b, rtol=1e-4, atol=1e-5 * scale)
+        worst = float((a - b).abs().max())
+        worst_share = max(worst_share, worst / max(scale, 1e-30))
+        if float(off.float().mean()) > 1e-3 or worst > 2 ** -7 * scale:
+            raise RuntimeError(f"{tag}: {what} on the card differs from the CPU in "
+                               f"{int(off.sum())} of {off.numel()} values, by up to {worst} "
+                               f"(largest magnitude {scale})")
+    return worst_share
+
+
+def dense_float_reference_phase(k1_float):
+    """Small graph, dense bf16 mode: SelfCF, and BUIR with the CPU's rate
+    and keep draws fed to both, on the card (K1's float kernel, forward and
+    backward: SelfCF 4 launches, BUIR 6) against the CPU (its plain
+    version): embeddings, one batch loss, its grads, top-20 lists."""
+    import torch
+
+    from selfrec_tpu_torch.models.graph.buir import BUIR
+    from selfrec_tpu_torch.models.graph.selfcf import SelfCF
+
+    set_layout(dense=True)
+    for cls, name, extra, expect in ((SelfCF, "SelfCF", SELFCF, 4),
+                                     (BUIR, "BUIR", BUIR_CONF, 6)):
+        with pinned_bf16():
+            models = small_pair(cls, graph_conf(name, extra, **{"batch.size": 256}))
+        models["cuda"].aux = {k: v.to("cuda") for k, v in models["cpu"].aux.items()}
+        batch = small_batch(models["cpu"].data, torch.Generator().manual_seed(7))
+        views = (models["cpu"].draw(torch.Generator().manual_seed(8)) if name == "BUIR"
+                 else None)
+        out = {}
+        for dev, m in models.items():
+            if m.adj.mm_dtype != torch.bfloat16:
+                raise RuntimeError(f"{name} reference phase: {m.adj!r} is not bf16")
+            with torch.no_grad():
+                ue, ie = m.embeddings()
+            params = {k: v.detach().clone().requires_grad_(True) for k, v in m.params.items()}
+            b = dict({k: v.to(dev) for k, v in batch.items()}, aux=m.aux)
+            kw = {} if views is None else {"views": [(r.to(dev), k.to(dev))
+                                                     for r, k in views]}
+            before = k1_float.launches
+            loss = m.batch_loss(params, b, **kw)
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = k1_float.launches - before
+            if launched != (expect if dev == "cuda" else 0):
+                raise RuntimeError(f"{name} reference phase: {launched} K1 float launches "
+                                   f"on {dev}, expected {expect if dev == 'cuda' else 0}")
+            out[dev] = {"user_emb": ue.cpu(), "item_emb": ie.cpu(), "loss": loss.detach().cpu(),
+                        **{f"grad {k}": v.grad.cpu() for k, v in params.items()}}
+        share = check_float_alike(f"{name} reference phase", out)
+        id_off, n_users = check_topk_alike(f"{name} reference phase", models,
+                                           out["cpu"]["user_emb"], out["cpu"]["item_emb"])
+        log(f"[reference] {name} dense bf16 small graph: card (K1 float, {expect} launches) "
+            f"agrees with the CPU (largest difference {share:.3g} of the largest magnitude), "
+            f"loss {float(out['cuda']['loss']):.6f} vs {float(out['cpu']['loss']):.6f}; "
+            f"top-20 lists of {n_users} users score alike ({100 * id_off:.2f}% of ids differ, "
+            f"all within score ties)")
+
+
+def buir_k2_row(model):
+    """K2's row at P = 2: BUIR's packed online + target chain, one step's
+    dropped weights over the yelp unified layout, D 64 a pass."""
+    import torch
+
+    from selfrec_tpu_torch.ops.spmm_ell import ell_weights
+
+    ew = model.adj.edge_w
+    views = model.draw(torch.Generator(device="cuda").manual_seed(2))
+    w_stack = torch.stack([torch.where(keep, ew / (1.0 - rate), torch.zeros_like(ew))
+                           for rate, keep in views])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = model.data.user_num + model.data.item_num
+    return k2_case("yelp packed P2", model.adj.fwd, ell_weights(model.adj.fwd, w_stack),
+                   torch.randn((n, 128), generator=gen, device="cuda"))
+
+
+def ncl_estep(model):
+    """NCL's E-step on its own, as bench.py:663-670 isolates it: k-means on
+    both raw tables, 25 Lloyd iterations at k 2000. Timed twice (the first
+    pays the allocator's warm-up); checks the centroids and assignments."""
+    import torch
+
+    model._proto_phase = True
+    times = []
+    for epoch in (20, 21):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        aux = model.epoch_setup(epoch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.time() - t0))
+    for side, n in (("user", model.data.user_num), ("item", model.data.item_num)):
+        cent, assign = aux[f"{side}_cent"], aux[f"{side}2c"]
+        if (tuple(cent.shape) != (model.k, 64) or tuple(assign.shape) != (n,)
+                or not bool(torch.isfinite(cent).all())
+                or int(assign.min()) < 0 or int(assign.max()) >= model.k):
+            raise RuntimeError(f"NCL E-step: bad {side} centroids or assignments")
+    used = [int(torch.unique(aux[f"{s}2c"]).numel()) for s in ("user", "item")]
+    log(f"[estep NCL] 2 tables x 25 Lloyd iterations at k {model.k}: {times[0]:.1f} ms, "
+        f"again {times[1]:.1f} ms; clusters in use {used[0]} (users), {used[1]} (items)")
+    return times
+
+
+def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, side=None):
     """The trainer's step over the first ``n_batches`` batches of epoch 0,
     after epoch_setup, with ``counter`` (a kernel wrapper, or a tuple of
     them whose counts add) set to 0 just before and read just after. Checks
     finite losses and the launch count (exactly ``per_step`` a step, 0
-    included, or at least one). Returns the launches."""
+    included, or at least one). ``side`` (a counter and its launches a
+    step) is a second count of the same run, checked exactly too (K1 float's
+    operand pass). Returns the launches."""
     import torch
 
     counters = counter if isinstance(counter, tuple) else (counter,)
+    counters_reset = counters + ((side[0],) if side is not None else ())
     users, items, masks = model.epoch_batches(0)
     torch.cuda.synchronize()
     t_setup = time.time()
@@ -742,7 +902,7 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0):
     setup_ms = 1e3 * (time.time() - t_setup)
     m = min(n_batches, users.shape[0] - profile_steps)
     torch.cuda.synchronize()
-    for c in counters:
+    for c in counters_reset:
         c.launches = 0
     t0 = time.time()
     first = model.train_batches(users[:1], items[:1], masks[:1])
@@ -758,12 +918,16 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0):
     if (launches != per_step * m) if per_step is not None else launches <= 0:
         raise RuntimeError(f"{tag} train: {launches} kernel launches in {m} steps, "
                            f"expected {'some' if per_step is None else per_step} a step")
+    if side is not None and side[0].launches != side[1] * m:
+        raise RuntimeError(f"{tag} train: {side[0].launches} side launches in {m} steps, "
+                           f"expected {side[1]} a step")
     log(f"[train {tag}] {m} batches x {model.batch_size}: loss {float(losses[0]):.6f} -> "
         f"{float(losses[-1]):.6f}, {t2 - t0:.3f} s, "
         f"{m * model.batch_size / (t2 - t0):.1f} examples/s (first step "
         f"{1e3 * (t1 - t0):.1f} ms; steps 2..{m}: {1e3 * (t2 - t1) / (m - 1):.2f} "
         f"ms/step, {(m - 1) * model.batch_size / (t2 - t1):.1f} examples/s), "
-        f"launches {launches}; epoch_setup {setup_ms:.1f} ms")
+        f"launches {launches}{'' if side is None else f' (side {side[0].launches})'}; "
+        f"epoch_setup {setup_ms:.1f} ms")
     if profile_steps:
         n = profile_steps
         profile_window(f"train {tag}", lambda: model.train_batches(
@@ -771,10 +935,12 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0):
     return launches
 
 
-def eval_path(tag, model, counter, profile=False, expect=None):
+def eval_path(tag, model, counter, profile=False, expect=None, width=64):
     """compute_embeddings plus one fast_evaluation over all test users, with
     the kernel's count (or the counts of a tuple of wrappers) set to 0 just
-    before; it must launch ``expect`` times, by default once a layer."""
+    before; it must launch ``expect`` times, by default once a layer. The
+    embeddings are ``width`` wide (128 for the concatenated or tower
+    embeddings of BUIR, SelfCF and SSL4Rec)."""
     import torch
 
     from selfrec_tpu_torch.utils import metrics
@@ -791,8 +957,8 @@ def eval_path(tag, model, counter, profile=False, expect=None):
     eval_ms = 1e3 * (time.time() - t0)
     launches = sum(c.launches for c in counters)
     ue, ie = model.user_emb, model.item_emb
-    if (tuple(ue.shape) != (model.data.user_num, 64)
-            or tuple(ie.shape) != (model.data.item_num, 64)
+    if (tuple(ue.shape) != (model.data.user_num, width)
+            or tuple(ie.shape) != (model.data.item_num, width)
             or not bool(torch.isfinite(ue).all() & torch.isfinite(ie).all())):
         raise RuntimeError(f"{tag} eval: embeddings of the wrong shape or not finite")
     if launches != expect:
@@ -833,12 +999,16 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     os.environ["SELFREC_TPU_DENSE_DTYPE"] = "int8"
     from selfrec_tpu_torch.device import disable_tf32
+    from selfrec_tpu_torch.models.graph.buir import BUIR
     from selfrec_tpu_torch.models.graph.directau import DirectAU
     from selfrec_tpu_torch.models.graph.lightgcn import LightGCN
     from selfrec_tpu_torch.models.graph.mf import MF
     from selfrec_tpu_torch.models.graph.mixgcf import MixGCF
+    from selfrec_tpu_torch.models.graph.ncl import NCL
+    from selfrec_tpu_torch.models.graph.selfcf import SelfCF
     from selfrec_tpu_torch.models.graph.sgl import SGL
     from selfrec_tpu_torch.models.graph.simgcl import SimGCL
+    from selfrec_tpu_torch.models.graph.ssl4rec import SSL4Rec
     from selfrec_tpu_torch.models.graph.xsimgcl import XSimGCL
     from selfrec_tpu_torch.ops import cuda_build, dense_dual, ell_gather
     from selfrec_tpu_torch.utils.synth import synth_graph_mapped
@@ -953,6 +1123,58 @@ def main():
     torch.cuda.empty_cache()
     resume_phase()
 
+    # SelfCF and BUIR in the dense bf16 mode: each hop one K1 float launch
+    # forward (bf16 operands) and one backward (f32 cotangents) -----------
+    k1_float = dense_dual.float_products
+    k1f_paths = {}
+    dense_float_reference_phase(k1_float)
+    with pinned_bf16():
+        model = yelp_model(SelfCF, "SelfCF", SELFCF, data, dense=True)
+    k1f_paths["selfcf_train"] = train_path(
+        "SelfCF bf16", model, k1_float, N_TRAIN_BATCHES, per_step=2 * model.n_layers,
+        profile_steps=N_PROFILE_STEPS,
+        side=(dense_dual.float_operand, 2 * 2 * model.n_layers))  # two operands a launch
+    k1f_paths["selfcf_eval"] = eval_path("SelfCF bf16", model, k1_float, width=128)
+    del model
+    torch.cuda.empty_cache()
+    with pinned_bf16():
+        model = yelp_model(BUIR, "BUIR", BUIR_CONF, data, dense=True)
+    k1f_paths["buir_train"] = train_path(
+        "BUIR bf16", model, k1_float, N_SHORT_BATCHES, per_step=3 * model.n_layers,
+        profile_steps=N_PROFILE_STEPS, side=(dense_dual.float_operand, 2 * 3 * model.n_layers))
+    k1f_paths["buir_eval"] = eval_path("BUIR bf16", model, k1_float, width=128)
+    del model
+    torch.cuda.empty_cache()
+    model = yelp_model(BUIR, "BUIR", BUIR_CONF, data, dense=False)
+    k2_rows.append(buir_k2_row(model))
+    k2_paths["buir_ell_train"] = train_path(
+        "BUIR ELL", model, ell_gather.ell_gather_sum, N_SHORT_BATCHES,
+        per_step=2 * model.n_layers)
+    del model
+    torch.cuda.empty_cache()
+
+    # NCL int8x8: both phases and the E-step between them ---------------------
+    model = yelp_model(NCL, "NCL", NCL_CONF, data, dense=True)
+    k1_paths["ncl_warm_train"] = train_path(
+        "NCL int8x8 warm-up", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
+        per_step=2 * model.n_layers)
+    ncl_estep(model)
+    k1_paths["ncl_proto_train"] = train_path(
+        "NCL int8x8 prototype phase", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
+        per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
+    k1_paths["ncl_eval"] = eval_path("NCL int8x8", model, dense_dual.dual_matmul)
+    del model
+    torch.cuda.empty_cache()
+
+    # SSL4Rec: two towers, no adjacency, so no K1 or K2 launch ----------------
+    model = yelp_model(SSL4Rec, "SSL4Rec", SSL4REC, data, dense=True)
+    no_kernel = (dense_dual.dual_matmul, k1_float, ell_gather.ell_gather_sum)
+    k1_paths["ssl4rec_train"] = train_path("SSL4Rec", model, no_kernel, N_SHORT_BATCHES,
+                                           per_step=0, profile_steps=N_PROFILE_STEPS)
+    k1_paths["ssl4rec_eval"] = eval_path("SSL4Rec", model, no_kernel, expect=0, width=128)
+    del model
+    torch.cuda.empty_cache()
+
     k1_main = next(r for r in k1_rows if r["tag"] == "yelp" and r["shape"][2] == 192)
     k1f_main = next(r for r in k1f_rows if r["tag"] == "yelp" and r["shape"][2] == 64
                     and r["x"] == "bf16")
@@ -961,9 +1183,9 @@ def main():
     for name, source, replaces, paths, main_row, rows in (
             ("K1 dual_matmul (int8)", "selfrec_tpu_torch/csrc/dense_dual.cu",
              "selfrec_tpu/ops/dense_dual.py:174", k1_paths, k1_main, k1_rows),
-            # no model path runs the float variant, as in the JAX package
+            # SelfCF's and BUIR's dense bf16 mode: bf16 operands forward, f32 back
             ("K1 dual_matmul (bf16/f32 operands)", "selfrec_tpu_torch/csrc/dense_dual.cu",
-             "selfrec_tpu/ops/dense_dual.py:174", {}, k1f_main, k1f_rows),
+             "selfrec_tpu/ops/dense_dual.py:174", k1f_paths, k1f_main, k1f_rows),
             ("K2 ell_gather_sum", "selfrec_tpu_torch/csrc/ell_gather.cu",
              "selfrec_tpu/ops/spmm_pallas.py:94", k2_paths, k2_main, k2_rows)):
         kernels.append({

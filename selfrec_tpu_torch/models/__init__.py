@@ -18,11 +18,11 @@ MODEL_REGISTRY: Dict[str, Tuple[Optional[str], str, str]] = {
     "SimGCL": ("selfrec_tpu_torch.models.graph.simgcl", "SimGCL", "graph"),
     "XSimGCL": ("selfrec_tpu_torch.models.graph.xsimgcl", "XSimGCL", "graph"),
     "SGL": ("selfrec_tpu_torch.models.graph.sgl", "SGL", "graph"),
-    "NCL": (None, "NCL", "graph"),
+    "NCL": ("selfrec_tpu_torch.models.graph.ncl", "NCL", "graph"),
     "MixGCF": ("selfrec_tpu_torch.models.graph.mixgcf", "MixGCF", "graph"),
-    "BUIR": (None, "BUIR", "graph"),
-    "SelfCF": (None, "SelfCF", "graph"),
-    "SSL4Rec": (None, "SSL4Rec", "graph"),
+    "BUIR": ("selfrec_tpu_torch.models.graph.buir", "BUIR", "graph"),
+    "SelfCF": ("selfrec_tpu_torch.models.graph.selfcf", "SelfCF", "graph"),
+    "SSL4Rec": ("selfrec_tpu_torch.models.graph.ssl4rec", "SSL4Rec", "graph"),
     "UserKNN": (None, "UserKNN", "graph"),
     "ItemKNN": (None, "ItemKNN", "graph"),
     "MHCN": (None, "MHCN", "graph"),

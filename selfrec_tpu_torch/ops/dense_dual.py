@@ -13,9 +13,10 @@ over the (U, I) 0/1 int8 incidence block B. Replaces the Pallas kernel
   came from TPU timings and does not carry over.
 - bf16 or f32 operands of one dtype, f32 outputs, with an autograd
   backward that is the same kernel (``gxu = B @ g_i``, ``gxi = B.T @ g_u``,
-  dense_dual.py:222-232). As in the JAX package no model path dispatches
-  it (spmm_dense.py:459-462): the port's bf16 and f32 dense modes keep
-  ``torch.matmul``.
+  dense_dual.py:222-232). The port's bf16 and f32 dense modes run its
+  products (:func:`float_products`) with a backward of their own, over the
+  f32 cotangents (``spmm_dense._DenseFloat``); the JAX package runs those
+  modes through XLA's dot instead.
 
 On the card both are hand-written CUDA kernels in ``csrc/dense_dual.cu`` on
 one TMA + ``wgmma`` skeleton; that file states their design and bounds on
@@ -34,8 +35,8 @@ reads B once more; the outputs are sliced back.
 
 :func:`dual_matmul` takes :func:`dual_matmul_plain` only for CPU tensors;
 for CUDA tensors it launches a kernel or raises. ``dual_matmul.launches``
-counts launches of the int8 kernel and ``dual_matmul.float_launches`` those
-of the float kernel, forward and backward.
+counts launches of the int8 kernel and ``float_products.launches`` those of
+the float kernel, forward and backward.
 """
 
 from __future__ import annotations
@@ -279,9 +280,13 @@ def _launch_s8(b, bt, xu, xi):
     return _sliced(out_u, d), _sliced(out_i, d)
 
 
-def _float_products(b, bt, xu, xi):
-    """(B @ xi, B.T @ xu) in f32 for float operands: the plain version on
-    the CPU, the float kernel on the card."""
+def float_products(b, bt, xu, xi):
+    """(B @ xi, B.T @ xu) in f32 for float operands of one dtype, with no
+    autograd: the plain version on the CPU, the float kernel on the card
+    (counted in ``float_products.launches``)."""
+    _check(b, xu, xi, bt)
+    if xu.dtype not in _FLOAT:
+        raise TypeError(f"float_products takes bfloat16 or float32 operands, got {xu.dtype}")
     if b.device.type == "cpu":
         return dual_matmul_plain(b, xu, xi)
     lib = cuda_build.hopper_library(b.device, _ready, _load, "dual_matmul")
@@ -291,8 +296,11 @@ def _float_products(b, bt, xu, xi):
                                float_operand(xi, plan), plan, torch.float32, plan.pieces)
     if rc != 0:
         raise RuntimeError(f"dual_matmul float kernel launch failed: error {rc}")
-    dual_matmul.float_launches += 1
+    float_products.launches += 1
     return _sliced(out_u, d), _sliced(out_i, d)
+
+
+float_products.launches = 0
 
 
 class _DualFloat(torch.autograd.Function):
@@ -304,13 +312,13 @@ class _DualFloat(torch.autograd.Function):
     def forward(ctx, b, bt, xu, xi):
         ctx.save_for_backward(b, bt)
         ctx.dtype = xu.dtype
-        return _float_products(b, bt, xu, xi)
+        return float_products(b, bt, xu, xi)
 
     @staticmethod
     def backward(ctx, g_u, g_i):
         b, bt = ctx.saved_tensors
         dt = ctx.dtype
-        gxu, gxi = _float_products(b, bt, g_u.to(dt), g_i.to(dt))
+        gxu, gxi = float_products(b, bt, g_u.to(dt), g_i.to(dt))
         return None, None, gxu.to(dt), gxi.to(dt)
 
 
@@ -335,4 +343,3 @@ def dual_matmul(b: torch.Tensor, xu: torch.Tensor, xi: torch.Tensor,
 
 
 dual_matmul.launches = 0
-dual_matmul.float_launches = 0

@@ -171,6 +171,32 @@ def build_bipartite_ell_template(edge_users, edge_items, n_users: int,
                               device=device)
 
 
+def adj_dropout(adj, rate, keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+    """Per-step sparse dropout of adjacency entries (graph.py:320-352;
+    reference BUIR.py:118-127): keep each edge with probability 1 - rate and
+    scale kept weights by 1 / (1 - rate), with no degree renormalization.
+    ``rate`` may be a 0-d tensor.
+
+    A DenseAdj takes :meth:`DenseAdj.dropout_view`; an EllAdj is reweighted
+    with ``where(keep, w / (1 - rate), 0)`` over its edges in their original
+    order, both directions alike. ``keep`` (E,) bool over the adjacency's
+    edge order is drawn as ``rand(E) >= rate`` from ``generator`` when not
+    given. Other layouts raise, as :func:`spmm` does."""
+    if isinstance(adj, DenseAdj):
+        return adj.dropout_view(rate, keep=keep, generator=generator)
+    if isinstance(adj, EllAdj):
+        if keep is None:
+            keep = torch.rand(adj.edge_w.shape, generator=generator,
+                              device=adj.edge_w.device) >= rate
+        return adj.reweight(torch.where(keep, adj.edge_w / (1.0 - rate),
+                                        torch.zeros_like(adj.edge_w)))
+    raise NotImplementedError(
+        f"adj_dropout over {type(adj).__name__}: the port drops edges of DenseAdj "
+        "and EllAdj; the other layouts are queued in ROADMAP.md (\"ELL "
+        "remainders\", \"Scale-out\")")
+
+
 def norm_adj_from_scipy(norm_adj, n_users: Optional[int] = None, k: int = 16,
                         device="cuda"):
     """Device adjacency from the host scipy normalized matrix (one-time

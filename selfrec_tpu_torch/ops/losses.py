@@ -52,6 +52,21 @@ def l2_reg_loss(reg: float, *embs, mask=None):
     return total * reg
 
 
+def batch_softmax_loss(user_emb, item_emb, temperature: float, mask=None):
+    """In-batch sampled softmax retrieval loss (losses.py:69-79; reference
+    loss_torch.py:25-32): -log(exp(cos(u, i)/τ) / Σ_j exp(cos(u, j)/τ) +
+    1e-5), the denominator over the batch's valid items only."""
+    user_emb = l2_normalize(user_emb)
+    item_emb = l2_normalize(item_emb)
+    pos_score = torch.exp(torch.sum(user_emb * item_emb, dim=-1) / temperature)
+    ttl = torch.exp(user_emb @ item_emb.T / temperature)
+    if mask is not None:
+        ttl = ttl * mask.to(ttl.dtype)[None, :]
+    ttl_score = torch.sum(ttl, dim=1)
+    loss = -torch.log(pos_score / ttl_score + 1e-5)
+    return _masked_mean(loss, mask)
+
+
 def infonce(view1, view2, temperature: float, b_cos: bool = True, mask=None):
     """-mean(diag(log_softmax(V1 V2ᵀ / τ))). Reference loss_torch.py:35-50.
 

@@ -12,19 +12,24 @@ incidence B as int8 and the normalization is exact f32 diagonal scalings,
 ``A = gain * diag(row_scale) @ B @ diag(col_scale)``.
 
 Matmul modes follow ``SELFREC_TPU_DENSE_DTYPE`` (``bfloat16`` default,
-``float32``, ``int8``) as in the JAX package:
+``float32``, ``int8``) as in the JAX package. Every factored block runs
+through kernel K1 (:mod:`selfrec_tpu_torch.ops.dense_dual`), over B and its
+kept transpose ``a_iu``:
 
-- ``int8`` quantizes each operand per channel to int8 and runs both
-  products through kernel K1 (:mod:`selfrec_tpu_torch.ops.dense_dual`),
+- ``int8`` quantizes each operand per channel to int8 (K1's int8 kernel),
   with the straight-through backward of spmm_dense.py:482-506;
-- the float modes and the generic (arbitrary weight) mode use
-  ``torch.matmul``, as the JAX package left them to XLA outside any kernel.
-  They keep a copy of the block in the matmul dtype (a 4.8 GB f32 copy at
-  yelp2018 scale: use float32 at test sizes).
+- ``bfloat16`` and ``float32`` round the scaled operand to the matmul
+  dtype and sum in f32 (K1's float kernel), as ``dot_general`` with
+  ``preferred_element_type=f32`` does (spmm_dense.py:532-547). The
+  backward multiplies the f32 cotangent by B and rounds only the product
+  to the operand dtype, as JAX's VJP of that dot does.
 
-SGL's per-epoch dropped views stay int8-factored through
-:meth:`DenseAdj.refactor_view`. Not ported yet: the dropout view and
-``DenseMat`` (ROADMAP.md).
+The generic (arbitrary weight) mode multiplies its value block in f32 with
+``torch.matmul`` (the JAX package leaves it to XLA outside any kernel).
+
+SGL's per-epoch dropped views stay factored through
+:meth:`DenseAdj.refactor_view`, and BUIR's per-step views through
+:meth:`DenseAdj.dropout_view`. Not ported yet: ``DenseMat`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -65,14 +70,14 @@ class DenseAdj:
     - **generic** (``row_scale is None``): ``a_ui`` holds arbitrary per-edge
       weights in a float dtype.
 
-    ``a_mm`` is the block the float matmul modes multiply with (``a_ui``
-    cast once to ``mm_dtype``); None in int8 mode, which feeds ``a_ui`` to
-    the kernel directly, with ``a_iu``, its (I, U) transpose, for the item
-    direction (K1 reads both; :func:`dense_dual.block_transpose`)."""
+    A factored block keeps ``a_iu``, B's (I, U) transpose, for K1's item
+    direction in every matmul mode (:func:`dense_dual.block_transpose`,
+    or ``a_iu`` when the caller made it already); a generic block has
+    none."""
 
     def __init__(self, a_ui, edge_users, edge_items, edge_w, n_users: int,
                  n_items: int, row_scale=None, col_scale=None, gain=None,
-                 mm_dtype=torch.bfloat16):
+                 mm_dtype=torch.bfloat16, a_iu=None):
         self.a_ui = a_ui
         self.edge_users = edge_users
         self.edge_items = edge_items
@@ -84,12 +89,9 @@ class DenseAdj:
         self.n_users = n_users
         self.n_items = n_items
         self.n_nodes = n_users + n_items
-        self.a_mm = None
         self.a_iu = None
-        if self.factored and mm_dtype != torch.int8:
-            self.a_mm = a_ui.to(mm_dtype)
-        elif self.factored:
-            self.a_iu = dense_dual.block_transpose(a_ui)
+        if self.factored:
+            self.a_iu = dense_dual.block_transpose(a_ui) if a_iu is None else a_iu
 
     @property
     def factored(self) -> bool:
@@ -104,8 +106,8 @@ class DenseAdj:
         (spmm_dense.py:175-198): the kept-edge Laplacian is a new binary
         incidence with diagonal scalings 1/sqrt over the recomputed degrees
         (reference SGL.py:89-96). ``keep`` is (E,) bool over this block's
-        edge order (see :func:`adj_edge_perm`). In int8 mode the view keeps
-        its own transpose for K1, as every int8 block does."""
+        edge order (see :func:`adj_edge_perm`). The view keeps its own
+        transpose for K1, as every factored block does."""
         kf = keep.to(torch.float32)
         du = torch.zeros(self.n_users, dtype=torch.float32, device=kf.device)
         di = torch.zeros(self.n_items, dtype=torch.float32, device=kf.device)
@@ -113,8 +115,7 @@ class DenseAdj:
         di.index_add_(0, self.edge_items, kf)
         ru = torch.where(du > 0, torch.rsqrt(torch.clamp(du, min=1e-12)), 0.0)
         ci = torch.where(di > 0, torch.rsqrt(torch.clamp(di, min=1e-12)), 0.0)
-        b = torch.zeros((self.n_users, self.n_items), dtype=torch.int8,
-                        device=kf.device)
+        b = _zero_block(self.n_users, self.n_items, kf.device)
         b.index_put_((self.edge_users, self.edge_items), keep.to(torch.int8),
                      accumulate=True)
         w = kf * ru[self.edge_users] * ci[self.edge_items]
@@ -123,11 +124,78 @@ class DenseAdj:
                         torch.tensor(1.0, dtype=torch.float32, device=kf.device),
                         mm_dtype=self.mm_dtype)
 
+    def dropout_view(self, rate, keep=None, generator=None) -> "DenseAdj":
+        """Per-step sparse dropout (spmm_dense.py:125-173; reference
+        BUIR.py:118-127): keep each edge with probability 1 - rate and
+        scale the kept weights by 1 / (1 - rate), with no degree
+        renormalization. ``rate`` may be a 0-d tensor (BUIR draws it each
+        forward).
+
+        A factored block stays factored: B ⊙ keep is binary and the scale
+        goes into ``gain``. By default the keep draw is per edge (the JAX
+        package's CPU default, ``SELFREC_TPU_DROPOUT_MASK=scatter``): ``keep``
+        (E,) bool over this block's edge order (:func:`adj_edge_perm`), or
+        ``rand(E) >= rate`` from ``generator``, set into B at (u, i) and
+        into a copy of the kept transpose at (i, u). A factored block has no
+        duplicate edges (:func:`_try_factor`), so setting an entry equals
+        multiplying it. The JAX package's per-position mask
+        (``SELFREC_TPU_DROPOUT_MASK=fused``, its accelerator default) is not
+        ported and raises; on a binary block its edges' keep distribution is
+        the per-edge draw's. Generic blocks draw per edge and multiply,
+        duplicates included."""
+        mode = os.environ.get("SELFREC_TPU_DROPOUT_MASK", "scatter")
+        if mode != "scatter":
+            raise NotImplementedError(
+                f"SELFREC_TPU_DROPOUT_MASK={mode}: the port draws the keep mask per "
+                "edge only; the per-position mask is not ported (ROADMAP.md); unset "
+                "it or set it to 'scatter'")
+        inv = 1.0 / (1.0 - rate)
+        if keep is None:
+            keep = torch.rand(self.edge_w.shape, generator=generator,
+                              device=self.device) >= rate
+        if self.factored:
+            k8 = keep.to(torch.int8)
+            b = _pitched_copy(self.a_ui)
+            b.index_put_((self.edge_users, self.edge_items), k8)
+            bt = _pitched_copy(self.a_iu)
+            bt.index_put_((self.edge_items, self.edge_users), k8)
+            return DenseAdj(b, self.edge_users, self.edge_items, self.edge_w,
+                            self.n_users, self.n_items, self.row_scale,
+                            self.col_scale, self.gain * inv, mm_dtype=self.mm_dtype,
+                            a_iu=bt)
+        flat = self.a_ui.reshape(-1).clone()
+        flat.scatter_reduce_(0, self.edge_users * self.n_items + self.edge_items,
+                             keep.to(flat.dtype), reduce="prod")
+        b = flat.reshape(self.a_ui.shape)
+        inv_t = torch.as_tensor(inv, dtype=torch.float32, device=self.device)
+        return DenseAdj(b * inv_t.to(b.dtype), self.edge_users, self.edge_items,
+                        self.edge_w, self.n_users, self.n_items, mm_dtype=b.dtype)
+
     def __repr__(self):
         mode = ("int8-factored" if self.factored else str(self.a_ui.dtype))
         gb = self.a_ui.numel() * self.a_ui.element_size() / 1e9
         return (f"DenseAdj(U={self.n_users}, I={self.n_items}, {mode}, "
                 f"mm={self.mm_dtype}, {gb:.2f} GB)")
+
+
+def _zero_block(rows: int, cols: int, device) -> torch.Tensor:
+    """A zero (rows, cols) int8 incidence block with the 16-byte row pitch
+    K1 reads, so that no launch has to copy it into one."""
+    return dense_dual.pitched_empty(rows, cols, torch.int8, device).zero_()
+
+
+def _pitched_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of the 2-D ``t`` with the same 16-byte row pitch K1 reads.
+    A pitched view (:func:`dense_dual.pitched_empty`) is copied with its
+    padding as one contiguous block: a plain device-to-device copy, where
+    copying the strided view element by element took 2.6 ms for the
+    yelp2018-scale transpose on an H100 (PERF.md, §5)."""
+    rows, cols = t.shape
+    pitch = t.stride(0)
+    if (t.stride(1) == 1 and t.storage_offset() == 0 and pitch >= cols
+            and t.untyped_storage().nbytes() >= rows * pitch * t.element_size()):
+        return t.as_strided((rows, pitch), (pitch, 1)).clone()[:, :cols]
+    return dense_dual.pitched_empty(rows, cols, t.dtype, t.device).copy_(t)
 
 
 def _try_factor(edge_users, edge_items, w, n_users, n_items):
@@ -194,7 +262,7 @@ def dense_adj_from_edges(edge_users, edge_items, w, n_users: int,
         fac = _try_factor(edge_users, edge_items, w, n_users, n_items)
         if fac is not None:
             ru, ci, gain = fac
-            b = torch.zeros((n_users, n_items), dtype=torch.int8, device=device)
+            b = _zero_block(n_users, n_items, device)
             b[eu, ei] = 1
             return DenseAdj(b, eu, ei, w32, n_users, n_items,
                             torch.as_tensor(ru, device=device),
@@ -307,12 +375,47 @@ class _DenseSpmmInt8(torch.autograd.Function):
         return _dense_spmm_int8_apply(ctx.adj, g.contiguous()), None
 
 
+class _DenseFloat(torch.autograd.Function):
+    """(B @ yi, B.T @ zu) in f32 for operands of one float dtype: K1's float
+    kernel on the card, its plain version on the CPU
+    (:func:`dense_dual.float_products`).
+
+    The backward is JAX's VJP of ``dot_general(B, y.astype(mmd),
+    preferred_element_type=f32)``: the same dual product over the f32
+    cotangents (K1's f32-operand variant on the card), rounded to the
+    operands' dtype only after the sum. This differs from ``dual_matmul``'s
+    own backward, the Pallas kernel's VJP, which rounds the cotangents
+    first."""
+
+    @staticmethod
+    def forward(ctx, zu, yi, b, bt):
+        ctx.save_for_backward(b, bt)
+        ctx.dtype = zu.dtype
+        return dense_dual.float_products(b, bt, zu, yi)
+
+    @staticmethod
+    def backward(ctx, g_u, g_i):
+        b, bt = ctx.saved_tensors
+        gzu, gyi = dense_dual.float_products(b, bt, g_u.float().contiguous(),
+                                             g_i.float().contiguous())
+        return gzu.to(ctx.dtype), gyi.to(ctx.dtype), None, None
+
+
+def _generic_products(a: torch.Tensor, xu: torch.Tensor, xi: torch.Tensor):
+    """(A @ xi, A.T @ xu) for a value block A: the operands rounded to A's
+    dtype, every product exact in f32 and summed in f32, as ``jnp.dot(...,
+    preferred_element_type=f32)`` does (spmm_dense.py:548-552)."""
+    af = a.float()
+    return af @ xi.to(a.dtype).float(), af.T @ xu.to(a.dtype).float()
+
+
 def dense_spmm(adj: DenseAdj, x: torch.Tensor) -> torch.Tensor:
     """Unified-node-space propagation: x is ((U+I), D) in [users; items]
     order; returns [A @ x_i ; A.T @ x_u] (spmm_dense.py:509-553).
 
     Factored: out_u = gain * ru . (B @ (ci . x_i)),
-              out_i = gain * ci . (B' @ (ru . x_u))  (gain folded into ru)."""
+              out_i = gain * ci . (B' @ (ru . x_u))  (gain folded into ru),
+    through K1 in every matmul mode; the bf16 and f32 modes sum in f32."""
     if adj.factored and adj.mm_dtype == torch.int8:
         return _DenseSpmmInt8.apply(x, adj)
     xu = x[: adj.n_users]
@@ -321,10 +424,9 @@ def dense_spmm(adj: DenseAdj, x: torch.Tensor) -> torch.Tensor:
         mmd = adj.mm_dtype
         ru = adj.row_scale[:, None] * adj.gain
         ci = adj.col_scale[:, None]
-        out_u = ru * torch.matmul(adj.a_mm, (ci * xi).to(mmd)).to(torch.float32)
-        out_i = ci * torch.matmul(adj.a_mm.T, (ru * xu).to(mmd)).to(torch.float32)
+        ou, oi = _DenseFloat.apply((ru * xu).to(mmd), (ci * xi).to(mmd), adj.a_ui, adj.a_iu)
+        out_u = ru * ou
+        out_i = ci * oi
     else:
-        a = adj.a_ui
-        out_u = torch.matmul(a, xi.to(a.dtype)).to(torch.float32)
-        out_i = torch.matmul(a.T, xu.to(a.dtype)).to(torch.float32)
+        out_u, out_i = _generic_products(adj.a_ui, xu, xi)
     return torch.cat([out_u, out_i], dim=0).to(x.dtype)

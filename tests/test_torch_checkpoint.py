@@ -4,7 +4,7 @@ tests/test_checkpoint.py and tests/test_untested_surfaces.py hold the JAX
 package's.
 
 A run stopped after epoch 2 and resumed to epoch 4 equals a continuous
-4-epoch run exactly on the CPU: the epoch shuffles are functions of (seed,
+4-epoch run exactly on the CPU, aux included (SelfCF's history buffers): the epoch shuffles are functions of (seed,
 epoch), the step generator's state is restored, and every CPU op here is
 deterministic. (chip_smoke.py makes the same comparison on the card, held
 to the JAX test's rtol 2e-3 / atol 2e-4.)
@@ -26,6 +26,9 @@ CASES = {
                     {"SELFREC_TPU_DENSE": "0"}),
     "XSimGCL-int8": ({"n_layer": 2, "l_star": 1, "lambda": 0.2, "eps": 0.2, "tau": 0.15},
                      {"SELFREC_TPU_DENSE": "1", "SELFREC_TPU_DENSE_DTYPE": "int8"}),
+    # history buffers in aux, dotted predictor keys in Adam's state
+    "SelfCF-bf16": ({"n_layer": 2, "tau": 0.05},
+                    {"SELFREC_TPU_DENSE": "1", "SELFREC_TPU_DENSE_DTYPE": "bfloat16"}),
 }
 
 
@@ -62,8 +65,12 @@ def test_resume_at_epoch_two_equals_a_continuous_run(tiny_graph_dataset, tmp_pat
     resumed = _run(tiny_graph_dataset, _conf(tmp_path, case, 4))
     assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_2", "step_4"]
     assert not torch.equal(first.params["user_emb"], full.params["user_emb"])
+    assert list(resumed.params) == list(full.params)
     for k in full.params:
         assert torch.equal(resumed.params[k], full.params[k]), k
+    assert set(resumed.aux) == set(full.aux)
+    for k in full.aux:
+        assert torch.equal(resumed.aux[k], full.aux[k]), k
     for a, b in zip(resumed.optimizer.state_dict()["state"].values(),
                     full.optimizer.state_dict()["state"].values()):
         assert float(a["step"]) == float(b["step"]) == 4 * -(-first.data.n_edges // 64)

@@ -55,10 +55,12 @@ def test_xavier_uniform_needs_an_explicit_device():
 
 
 @pytest.mark.parametrize("name", ["SimGCL", "LightGCN", "SGL", "MF", "XSimGCL",
-                                  "DirectAU", "MixGCF"])
+                                  "DirectAU", "MixGCF", "NCL", "BUIR", "SelfCF",
+                                  "SSL4Rec"])
 def test_model_params_cross_unchanged(monkeypatch, tiny_graph_dataset, name):
     """A JAX model's parameters install into the port's model of the same
-    name (same keys, shapes and dtypes as its own init) and come back equal."""
+    name (same dotted keys, shapes and dtypes as its own init) and come back
+    as the same tree."""
     from selfrec_tpu.config import ModelConf as JaxConf
     from selfrec_tpu.models import get_model_class as jax_model_class
     from selfrec_tpu_torch.config import ModelConf
@@ -72,14 +74,16 @@ def test_model_params_cross_unchanged(monkeypatch, tiny_graph_dataset, name):
     train, test = tiny_graph_dataset
     jm = jax_model_class(name)(JaxConf(dict(conf)), train, test)
     tm = get_model_class(name)(ModelConf(dict(conf)), train, test, device="cpu")
-    jp = {k: np.asarray(v) for k, v in jm.init_params(jax.random.PRNGKey(1)).items()}
+    tree = jax.tree_util.tree_map(np.asarray, jm.init_params(jax.random.PRNGKey(1)))
+    jp = convert.flatten_params(tree)
     own = tm.init_params(torch.Generator().manual_seed(1))
     assert {k: (tuple(v.shape), str(v.dtype)) for k, v in own.items()} == {
         k: (v.shape, f"torch.{v.dtype}") for k, v in jp.items()}
-    tm.set_params(convert.params_from_jax(jp, device="cpu"))
+    tm.set_params(convert.params_from_jax(tree, device="cpu"))
     back = convert.params_to_jax(tm.params)
-    for k in jp:
-        np.testing.assert_array_equal(back[k], jp[k])
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
+    for k, v in convert.flatten_params(back).items():
+        np.testing.assert_array_equal(v, jp[k])
 
 
 def test_params_from_jax_defaults_to_the_card(monkeypatch):
@@ -90,3 +94,23 @@ def test_params_from_jax_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.params_from_jax(jp)
     assert convert.params_from_jax(jp, device="cpu")["w"].device.type == "cpu"
+
+
+def test_nested_params_flatten_to_dotted_keys_and_back():
+    """Layers as nested dicts and lists (BUIR's predictor, SSL4Rec's towers)
+    flatten to dotted keys in the tree's order, and unflatten to the same
+    tree; a flat dict is its own flattening."""
+    w = np.arange(6, dtype=np.float32).reshape(2, 3)
+    tree = {"user_emb": w, "predictor": {"w": w.T, "b": w[0]},
+            "user_tower": [{"w": w, "b": w[1]}, {"w": w.T, "b": w[0, :2]}]}
+    flat = convert.flatten_params(tree)
+    assert list(flat) == ["user_emb", "predictor.w", "predictor.b", "user_tower.0.w",
+                          "user_tower.0.b", "user_tower.1.w", "user_tower.1.b"]
+    tp = convert.params_from_jax(tree, device="cpu")
+    assert list(tp) == list(flat)
+    back = convert.params_to_jax(tp)
+    assert isinstance(back["user_tower"], list) and len(back["user_tower"]) == 2
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(tree)):
+        np.testing.assert_array_equal(a, b)
+    assert convert.flatten_params({"a": w, "b": w}) == {"a": w, "b": w}

@@ -136,11 +136,11 @@ def test_float_autograd_matches_jax_grad(u, i, d):
     jgu, jgi = jax.grad(f_jax, argnums=(0, 1))(jnp.asarray(xu), jnp.asarray(xi))
     tu = torch.from_numpy(xu).requires_grad_(True)
     ti = torch.from_numpy(xi).requires_grad_(True)
-    before = dense_dual.dual_matmul.float_launches
+    before = dense_dual.float_products.launches
     tb = torch.from_numpy(b)
     ou, oi = dense_dual.dual_matmul(tb, tu, ti, dense_dual.block_transpose(tb))
     (torch.sum(ou * torch.from_numpy(wu)) + torch.sum(oi * torch.from_numpy(wi))).backward()
-    assert dense_dual.dual_matmul.float_launches == before  # CPU: plain version
+    assert dense_dual.float_products.launches == before  # CPU: plain version
     np.testing.assert_allclose(tu.grad.numpy(), np.asarray(jgu), **FLOAT_TOL)
     np.testing.assert_allclose(ti.grad.numpy(), np.asarray(jgi), **FLOAT_TOL)
 
@@ -180,7 +180,9 @@ def test_block_transpose_and_k_major_are_pitched_transposes(u, i):
 
 def test_int8_block_keeps_its_transpose_through_refactor_view(monkeypatch):
     """int8 blocks carry B.T for K1's item direction, and so do SGL's
-    per-epoch dropped views; float-mode blocks do not need it."""
+    per-epoch dropped views; factored float-mode blocks run K1's float
+    kernel and carry it too, with no copy of B in the matmul dtype, and a
+    generic value block carries none."""
     from selfrec_tpu_torch.ops import spmm_dense
 
     rng = np.random.default_rng(5)
@@ -194,8 +196,14 @@ def test_int8_block_keeps_its_transpose_through_refactor_view(monkeypatch):
     assert torch.equal(adj.a_iu, adj.a_ui.T)
     view = adj.refactor_view(torch.from_numpy(rng.random(len(eu)) < 0.8))
     assert torch.equal(view.a_iu, view.a_ui.T) and not torch.equal(view.a_ui, adj.a_ui)
-    monkeypatch.setenv("SELFREC_TPU_DENSE_DTYPE", "float32")
-    assert spmm_dense.dense_adj_from_edges(eu, ei, w, nu, ni, device="cpu").a_iu is None
+    for dtype in ("float32", "bfloat16"):
+        monkeypatch.setenv("SELFREC_TPU_DENSE_DTYPE", dtype)
+        fadj = spmm_dense.dense_adj_from_edges(eu, ei, w, nu, ni, device="cpu")
+        assert fadj.factored and fadj.mm_dtype == getattr(torch, dtype)
+        assert torch.equal(fadj.a_iu, fadj.a_ui.T) and not hasattr(fadj, "a_mm")
+    generic = spmm_dense.dense_adj_from_edges(eu, ei, w, nu, ni, dtype=torch.float32,
+                                              device="cpu")
+    assert not generic.factored and generic.a_iu is None
 
 
 def test_edge_index_check_names_the_bad_positions():

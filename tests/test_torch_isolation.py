@@ -39,7 +39,10 @@ def _port_sources():
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules() + ["selfrec_tpu_torch.__main__"]
     assert {"selfrec_tpu_torch.ops.dense_dual", "selfrec_tpu_torch.ops.ell_gather",
-            "selfrec_tpu_torch.models.graph.sgl"} <= set(mods)
+            "selfrec_tpu_torch.models.graph.sgl", "selfrec_tpu_torch.ops.kmeans",
+            "selfrec_tpu_torch.models.graph.ncl", "selfrec_tpu_torch.models.graph.buir",
+            "selfrec_tpu_torch.models.graph.selfcf",
+            "selfrec_tpu_torch.models.graph.ssl4rec"} <= set(mods)
     code = (
         "import sys, importlib, importlib.util, runpy\n"
         f"for m in {mods!r}:\n"
@@ -76,10 +79,11 @@ def test_registry_lists_every_model_and_refuses_unported():
     from selfrec_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
 
     assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
-    for name in ("SimGCL", "LightGCN", "SGL", "MF", "XSimGCL", "DirectAU", "MixGCF"):
+    for name in ("SimGCL", "LightGCN", "SGL", "MF", "XSimGCL", "DirectAU", "MixGCF",
+                 "NCL", "BUIR", "SelfCF", "SSL4Rec"):
         assert get_model_class(name).__name__ == name
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model_class("NCL")
+        get_model_class("UserKNN")
     with pytest.raises(KeyError):
         get_model_class("NoSuchModel")
 
@@ -206,7 +210,7 @@ def test_dual_matmul_refuses_cuda_tensors_it_cannot_launch_on(monkeypatch, failu
         raise RuntimeError("nvcc not found")
 
     monkeypatch.setattr(dense_dual, "_load", no_library)
-    before = (dense_dual.dual_matmul.launches, dense_dual.dual_matmul.float_launches)
+    before = (dense_dual.dual_matmul.launches, dense_dual.float_products.launches)
     with FakeTensorMode(allow_non_fake_inputs=True):
         b = torch.empty((96, 160), dtype=torch.int8, device="cuda")
         xu = torch.empty((96, 64), dtype=getattr(torch, dtype), device="cuda")
@@ -217,7 +221,7 @@ def test_dual_matmul_refuses_cuda_tensors_it_cannot_launch_on(monkeypatch, failu
             dense_dual.dual_matmul(b, xu, xi, bt)
     assert plain_calls == []
     assert (dense_dual.dual_matmul.launches,
-            dense_dual.dual_matmul.float_launches) == before
+            dense_dual.float_products.launches) == before
 
 
 def _check_int8_on_the_card(gen, u, i, d):
@@ -243,16 +247,16 @@ def _check_float_on_the_card(gen, u, i, d, dtype):
     plan = dense_dual.width_plan(d, 3 if dtype == torch.float32 else 1)
     assert torch.equal(dense_dual.float_operand(xu.detach(), plan),
                        dense_dual.float_operand_plain(xu.detach(), plan))
-    before = dense_dual.dual_matmul.float_launches
+    before = dense_dual.float_products.launches
     ou, oi = dense_dual.dual_matmul(b, xu, xi, dense_dual.block_transpose(b))
     torch.cuda.synchronize()
-    assert dense_dual.dual_matmul.float_launches == before + 1
+    assert dense_dual.float_products.launches == before + 1
     pu, pi = dense_dual.dual_matmul_plain(b, xu.detach(), xi.detach())
     torch.testing.assert_close(ou, pu, rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(oi, pi, rtol=1e-5, atol=1e-3)
     wu, wi = torch.randn_like(ou), torch.randn_like(oi)
     (ou * wu).sum().add((oi * wi).sum()).backward()
-    assert dense_dual.dual_matmul.float_launches == before + 2
+    assert dense_dual.float_products.launches == before + 2
     # gxu = B @ g_i, gxi = B.T @ g_u, in the operands' dtype: bf16
     # gradients may differ by one bf16 step of the rounded f32 sum
     gu, gi = dense_dual.dual_matmul_plain(b, wu.to(dtype), wi.to(dtype))
@@ -332,3 +336,71 @@ def test_ell_gather_kernel_matches_plain_on_the_card():
         torch.testing.assert_close(out, ell_gather.ell_gather_sum_plain(layout, w, x),
                                    rtol=2e-5, atol=2e-5)
         assert torch.equal(out, ell_gather.ell_gather_sum(layout, w, x))
+
+
+def _factored_edges(nu, ni, seed):
+    rng = np.random.default_rng(seed)
+    key = np.unique(rng.integers(0, nu * ni, 8 * nu))
+    eu, ei = (key // ni).astype(np.int32), (key % ni).astype(np.int32)
+    du, di = np.bincount(eu, minlength=nu), np.bincount(ei, minlength=ni)
+    return eu, ei, (1 / np.sqrt(du[eu] * di[ei])).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_dense_bf16_spmm_on_the_card_matches_the_cpu(monkeypatch):
+    """The factored bf16 mode on the card (K1's float kernel: one launch
+    forward with bf16 operands, one backward with f32 cotangents) against
+    the same block on the CPU at a ragged shape: values within K1 float's
+    rtol 1e-5 / atol 1e-3, grads within one bf16 step of the rounded f32
+    sums (rtol 2^-7, atol 1e-2). Run as the dual kernel's test above."""
+    _needs_card()
+    from selfrec_tpu_torch.ops import spmm_dense
+
+    monkeypatch.setenv("SELFREC_TPU_DENSE_DTYPE", "bfloat16")
+    nu, ni = 517, 1029
+    eu, ei, w = _factored_edges(nu, ni, 3)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((nu + ni, 64), generator=gen)
+    wout = torch.randn((nu + ni, 64), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        adj = spmm_dense.dense_adj_from_edges(eu, ei, w, nu, ni, device=dev)
+        xr = x.to(dev).detach().requires_grad_(True)
+        before = dense_dual.float_products.launches
+        y = spmm_dense.dense_spmm(adj, xr)
+        (y * wout.to(dev)).sum().backward()
+        launched = dense_dual.float_products.launches - before
+        assert launched == (2 if dev == "cuda" else 0)
+        out[dev] = (y.detach().cpu(), xr.grad.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=2 ** -7, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_dropout_view_on_the_card_keeps_b_and_its_transpose_alike(monkeypatch):
+    """A per-edge dropout view made on the card (fed keep, and drawn from a
+    card generator): B and the kept transpose stay transposes of each
+    other at K1's row pitch, the kept edges are the keep mask's, and the fed
+    view equals the CPU's."""
+    _needs_card()
+    from selfrec_tpu_torch.ops import spmm_dense
+
+    monkeypatch.setenv("SELFREC_TPU_DENSE_DTYPE", "bfloat16")
+    monkeypatch.setenv("SELFREC_TPU_DROPOUT_MASK", "scatter")
+    nu, ni = 700, 1337
+    eu, ei, w = _factored_edges(nu, ni, 4)
+    adj = spmm_dense.dense_adj_from_edges(eu, ei, w, nu, ni, device="cuda")
+    cpu = spmm_dense.dense_adj_from_edges(eu, ei, w, nu, ni, device="cpu")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    keep = torch.rand(adj.edge_w.shape, generator=gen, device="cuda") >= 0.3
+    rate = torch.tensor(0.3, device="cuda")
+    for view in (adj.dropout_view(rate, keep=keep), adj.dropout_view(rate, generator=gen)):
+        torch.cuda.synchronize()
+        assert torch.equal(view.a_iu, view.a_ui.T)
+        assert set(view.a_ui.unique().tolist()) <= {0, 1}
+        # a ragged width keeps K1's row pitch: a launch copies nothing
+        assert all(dense_dual._pitched(t) is t for t in (view.a_ui, view.a_iu))
+    fed = adj.dropout_view(rate, keep=keep)
+    assert int(fed.a_ui.sum()) == int(keep.sum())
+    assert torch.equal(fed.a_ui.cpu(), cpu.dropout_view(0.3, keep=keep.cpu()).a_ui)
+    assert int(adj.a_ui.sum()) == len(eu) and torch.equal(adj.a_iu, adj.a_ui.T)

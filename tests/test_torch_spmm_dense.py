@@ -233,3 +233,68 @@ def test_int8_propagation_calls_the_kernel_wrapper(monkeypatch):
     t_dense.dense_spmm(tadj, x).sum().backward()
     t_dense.dense_spmm(tadj, x[:, :64].detach())
     assert calls == [192, 192, 64]
+
+
+# -- the bf16 and f32 modes sum in f32 (K1's float kernel on the card) ------
+# Both packages round the scaled operand to the matmul dtype the same way and
+# sum exact products in f32, in another order: values and grads within rtol
+# 1e-5 / atol 1e-6 in every dense mode. The backward multiplies the f32
+# cotangent and rounds only the product to the operand dtype, as JAX's VJP
+# of dot_general(..., preferred_element_type=f32) does.
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_factored_float_modes_match_jax_forward_and_vjp(monkeypatch, dtype):
+    jadj, tadj = _both_adjs(monkeypatch, dtype, _edges())
+    assert tadj.factored and tadj.mm_dtype == getattr(torch, dtype)
+    assert not hasattr(tadj, "a_mm") and torch.equal(tadj.a_iu, tadj.a_ui.T)
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(NU + NI, 64)).astype(np.float32)
+    wout = rng.normal(size=x.shape).astype(np.float32)
+    jo, jg = _values_and_grads_jax(jadj, x, wout)
+    to, tg = _values_and_grads_torch(tadj, x, wout)
+    assert to.dtype == tg.dtype == np.float32
+    np.testing.assert_allclose(to, jo, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tg, jg, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_generic_bf16_block_sums_in_f32_like_jax(monkeypatch, dtype):
+    """A value block (arbitrary weights) in bf16 or f32: the operands
+    rounded to its dtype, products exact in f32 and summed in f32."""
+    eu, ei, _ = _edges()
+    w = np.random.default_rng(7).uniform(0.1, 2.0, len(eu)).astype(np.float32)
+    jadj, tadj = _both_adjs(monkeypatch, dtype, (eu, ei, w), dtype=dtype)
+    assert not tadj.factored and tadj.a_ui.dtype == getattr(torch, dtype)
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(NU + NI, 24)).astype(np.float32)
+    wout = rng.normal(size=x.shape).astype(np.float32)
+    jo, jg = _values_and_grads_jax(jadj, x, wout)
+    to, tg = _values_and_grads_torch(tadj, x, wout)
+    np.testing.assert_allclose(to, jo, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tg, jg, rtol=1e-5, atol=1e-6)
+
+
+def test_float_modes_run_k1_products_and_never_torch_matmul(monkeypatch):
+    """The factored bf16 mode goes through K1's products forward (bf16
+    operands) and backward (f32 cotangents), never through torch.matmul."""
+    _, tadj = _both_adjs(monkeypatch, "bfloat16", _edges())
+    calls = []
+    real = dense_dual.float_products
+
+    def spy(b, bt, xu, xi):
+        assert b is tadj.a_ui and bt is tadj.a_iu
+        calls.append((xu.dtype, xi.dtype))
+        return real(b, bt, xu, xi)
+
+    def no_matmul(*a, **k):
+        raise AssertionError("torch.matmul on the dense float path")
+
+    monkeypatch.setattr(dense_dual, "float_products", spy)
+    monkeypatch.setattr(torch, "matmul", no_matmul)
+    x = torch.randn(NU + NI, 32, requires_grad=True)
+    out = t_dense.dense_spmm(tadj, x)
+    assert out.dtype == torch.float32
+    out.square().sum().backward()
+    assert calls == [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)]
+    assert x.grad.dtype == torch.float32
