@@ -18,11 +18,12 @@ SimGCL, int8x8 dense layout (SELFREC_TPU_DENSE=1):
    width the kernel pads); outputs must match exactly. Times the kernel
    (one call at a time, and back to back; at the yelp block also its
    kernel alone under torch.profiler), the plain version and two
-   ``torch._int_mm`` calls (a yardstick the port never calls), and
-   computes each bound. Then K1's float kernel, which no model path runs,
-   with bf16 and f32 operands at the same shapes: its operand pass equal
-   to its plain version bit for bit, the products within rtol 1e-5 /
-   atol 1e-3 of the plain version, its backward too at the ragged shapes;
+   ``torch._int_mm`` calls (a yardstick; the port calls it only in KNN's
+   similarity build, never in K1's place), and computes each bound.
+   Then K1's float kernel (the dense bf16 mode's, phases 17-19) with
+   bf16 and f32 operands at the same shapes: its operand pass equal to
+   its plain version bit for bit, the products within rtol 1e-5 / atol
+   1e-3 of the plain version, its backward too at the ragged shapes;
    two ``torch.matmul`` over a copy of B in the operands' dtype are its
    yardstick.
 2. reference phase: on a small graph, the embeddings, one batch loss and
@@ -98,8 +99,31 @@ bench.py's _pinned_bf16 does; BUIR on ELL; NCL int8x8; SSL4Rec:
 21. SSL4Rec (bench.py:777-783: tau 0.07, alpha 0.1, drop 0.1): 10 steps
     and one eval, with no K1 or K2 launch.
 
+The budget fallbacks, forced on the yelp graph by lowering the budgets, and
+UserKNN/ItemKNN, which rank through the scatter-mask path:
+22. SimGCL int8x8 with the CSR sampler (SELFREC_TPU_NEG_BITMAP_MB=100; the
+    bitmap is 150 MB): from one trainer state the CSR and bitmap samplers
+    give the same negatives and bit-identical losses over 3 steps, and the
+    card's CSR membership search equals the CPU's on 1,000,000 lanes; one
+    sampler call of each timed. Then 10 steps (6 K1 launches a step, five
+    more under the profiler) and one eval with SELFREC_TPU_EVAL_MASK=scatter
+    (3 launches); the scatter-mask ids equal the dense-mask ids.
+23. Over budget under auto (SELFREC_TPU_DENSE=auto,
+    SELFREC_TPU_DENSE_BUDGET_GB=1.0: the 1.205 GB block and mask do not
+    fit) with SELFREC_TPU_HOST_BATCHES=1: LightGCN on ELL, 10 steps (6 K2
+    launches a step at P = 1), one eval through the scatter mask (3).
+24. SELFREC_TPU_ELL=0: LightGCN on the edge-list NormAdj, 10 steps (five
+    more under the profiler) and one eval, with no K1 or K2 launch.
+25. KNN reference phase: on the small graph, UserKNN and ItemKNN (topK 50,
+    shrinkage 100) on the card against the CPU: sims and ids exactly, the
+    card's blocked build equal to the dense one, rec lists alike (scores
+    within rtol 1e-5 / atol 1e-7, differing ids only within score ties).
+26. UserKNN and ItemKNN at bench.py:808-855 (topK 50, shrinkage 100): the
+    similarity build twice and the eval (rec list through the scatter-mask
+    plan), with no K1 or K2 launch.
+
 Every path sets the launch counts to 0 just before it and reads them just
-after. Prints the kernel table as one JSON line, the card's name and power
+after; each phase's knobs are set around it and restored. Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Any failure
 raises and exits non-zero; without a CUDA device it exits 1 and prints no
 result.
@@ -521,17 +545,33 @@ NCL_CONF = {"n_layer": 3, "ssl_reg": 1e-6, "proto_reg": 1e-7, "tau": 0.05,
 SSL4REC = {"tau": 0.07, "alpha": 0.1, "drop": 0.1}
 
 
-class pinned_bf16:
+class knobs:
+    """Environment knobs set for one phase and restored after (None unsets)."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pinned_bf16():
     """The dense bf16 mode around a build, as bench.py's _pinned_bf16 pins
     it for BUIR and SelfCF: SELFREC_TPU_DENSE_DTYPE unset (its default is
     bfloat16) inside, restored after."""
-
-    def __enter__(self):
-        self.saved = os.environ.pop("SELFREC_TPU_DENSE_DTYPE", None)
-
-    def __exit__(self, *exc):
-        if self.saved is not None:
-            os.environ["SELFREC_TPU_DENSE_DTYPE"] = self.saved
+    return knobs(SELFREC_TPU_DENSE_DTYPE=None)
 
 
 def check_close(tag, what, a, b, rtol, atol):
@@ -977,6 +1017,237 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
     return launches
 
 
+def snapshot(model):
+    """The trainer state a step changes: params, Adam's state, the step
+    generator's state, aux."""
+    import copy
+
+    return ({k: v.detach().clone() for k, v in model.params.items()},
+            copy.deepcopy(model.optimizer.state_dict()), model.generator.get_state(),
+            dict(model.aux))
+
+
+def restore(model, state):
+    import torch
+
+    params, opt, gen, aux = state
+    with torch.no_grad():
+        for k, v in params.items():
+            model.params[k].copy_(v)
+    model.optimizer.load_state_dict(opt)
+    model.generator.set_state(gen)
+    model.aux = dict(aux)
+
+
+def sampler_gates(model, n_steps=3):
+    """The CSR sampler (the bitmap over budget) against the bitmap sampler
+    on the same model: from one generator state the same negatives, and
+    over ``n_steps`` trainer steps from one state the same negatives and
+    bit-identical losses; then the trainer state is put back. Times one
+    sampler call of each at the step's (batch,) lanes."""
+    import torch
+
+    from selfrec_tpu_torch.ops import sampling
+
+    if model._rated_bitmap is not None:
+        raise RuntimeError("CSR phase: the bitmap fits SELFREC_TPU_NEG_BITMAP_MB")
+    bitmap = sampling.bitmap_to_device(sampling.pack_rated_bitmap(
+        model.data.rated_offsets, model.data.rated_items, model.data.user_num,
+        model.data.item_num), "cuda")
+    users, items, masks = model.epoch_batches(0)
+    start = snapshot(model)
+    drawn = {}
+    for tag in ("csr", "bitmap"):
+        restore(model, start)
+        model._rated_bitmap = bitmap if tag == "bitmap" else None
+        negs = []
+        sample = type(model).sample_negatives
+        model.sample_negatives = lambda u: negs.append(sample(model, u)) or negs[-1]
+        losses = model.train_batches(users[:n_steps], items[:n_steps], masks[:n_steps])
+        del model.sample_negatives
+        drawn[tag] = (torch.stack(negs), losses)
+    model._rated_bitmap = None
+    restore(model, start)
+    if not torch.equal(drawn["csr"][0], drawn["bitmap"][0]):
+        raise RuntimeError("CSR phase: the CSR and bitmap samplers drew different negatives")
+    if not torch.equal(drawn["csr"][1], drawn["bitmap"][1]):
+        raise RuntimeError(f"CSR phase: losses differ, CSR {drawn['csr'][1].tolist()} bitmap "
+                           f"{drawn['bitmap'][1].tolist()}")
+    u = users[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = tuple(u.shape)
+    csr_ms = cuda_ms(lambda: sampling.sample_negatives(
+        gen, u, model._rated_items, model._rated_offsets, model.data.item_num, shape,
+        n_search_steps=model._n_search_steps), reps=20)
+    bitmap_ms = cuda_ms(lambda: sampling.sample_negatives_bitmap(
+        gen, u, bitmap, model.data.item_num, shape), reps=20)
+    log(f"[sampler] CSR (search {model._n_search_steps} steps) equals the bitmap over "
+        f"{n_steps} steps: negatives and losses {drawn['csr'][1].tolist()}; one call at "
+        f"{shape[0]} lanes: CSR {csr_ms:.4f} ms, bitmap {bitmap_ms:.4f} ms")
+
+
+def csr_on_card_gate(model, n=1_000_000):
+    """The CSR membership search on the card equals the CPU's on the same
+    (user, candidate) lanes of the yelp CSR."""
+    import torch
+
+    from selfrec_tpu_torch.ops import sampling
+
+    gen = torch.Generator().manual_seed(5)
+    users = torch.randint(0, model.data.user_num, (n,), generator=gen)
+    cand = torch.randint(0, model.data.item_num, (n,), generator=gen)
+    # half the lanes ask for an item the user rated
+    off = torch.as_tensor(model.data.rated_offsets)
+    pick = off[users] + (torch.rand(n, generator=gen) * (off[users + 1] - off[users])).long()
+    cand = torch.where(torch.arange(n) % 2 == 0,
+                       torch.as_tensor(model.data.rated_items).long()[pick], cand)
+    got = {dev: sampling.searchsorted_in_segments(
+        torch.as_tensor(model.data.rated_items, device=dev), off.to(dev), users.to(dev),
+        cand.to(dev), model._n_search_steps).cpu() for dev in ("cpu", "cuda")}
+    if not torch.equal(got["cuda"], got["cpu"]):
+        raise RuntimeError("CSR phase: the card's membership search differs from the CPU's")
+    log(f"[sampler] CSR membership on the card equals the CPU on {n} lanes "
+        f"({float(got['cpu'].float().mean()):.3f} rated)")
+
+
+def timed_ids(data, model):
+    """Top-20 ids of the model's embeddings, and the ms of that ranking."""
+    import torch
+
+    from selfrec_tpu_torch.ops import ranking
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ids = ranking.topk_ids_from_embeddings(data, model.user_emb, model.item_emb, 20)
+    torch.cuda.synchronize()
+    return ids, 1e3 * (time.time() - t0)
+
+
+def scatter_eval_gate(tag, model):
+    """The scatter-mask ranking's ids equal the resident mask's on the same
+    embeddings; each timed (the second of two runs)."""
+    import numpy as np
+
+    with knobs(SELFREC_TPU_EVAL_MASK="scatter"):
+        timed_ids(model.data, model)
+        scatter, scatter_ms = timed_ids(model.data, model)
+    with knobs(SELFREC_TPU_EVAL_MASK="dense"):
+        timed_ids(model.data, model)
+        dense, dense_ms = timed_ids(model.data, model)
+    if not np.array_equal(scatter, dense):
+        raise RuntimeError(f"{tag}: the scatter-mask ids differ from the dense-mask ids in "
+                           f"{int((scatter != dense).sum())} places")
+    log(f"[eval {tag}] scatter-mask ids equal the dense-mask ids ({scatter.shape[0]} users); "
+        f"ranking alone: scatter {scatter_ms:.1f} ms, dense {dense_ms:.1f} ms")
+
+
+KNN_CONF = {"topK": 50, "shrinkage": 100}
+
+
+def knn_rec_check(tag, rec, data, k=20):
+    if len(rec) != len(data.test_user_ids) or any(len(v) != k for v in rec.values()):
+        raise RuntimeError(f"{tag}: rec list of the wrong shape")
+    if not all(math.isfinite(s) for v in rec.values() for _, s in v):
+        raise RuntimeError(f"{tag}: rec list scores not finite")
+
+
+def knn_reference_phase():
+    """Small graph (600 x 900): UserKNN and ItemKNN on the card against the
+    CPU. Sims and ids exactly (the dense build's int8 product and its
+    shrunk cosine rounded once are exact on both), the card's blocked
+    fallback build equal to its dense build, and the rec lists: each
+    position's score within rtol 1e-5 / atol 1e-7 of the CPU's, and where
+    the ids differ the CPU scores both ids alike (the scores' edge-list sums
+    add in another order on the card, so near-ties may swap)."""
+    import numpy as np
+    import torch
+
+    from selfrec_tpu_torch.models.graph.itemknn import ItemKNN
+    from selfrec_tpu_torch.models.graph.userknn import UserKNN
+    from selfrec_tpu_torch.ops import ranking
+    from selfrec_tpu_torch.utils.synth import synth_graph_mapped
+
+    train, test = synth_graph_mapped(600, 900, 12000, seed=5)
+    for cls in (UserKNN, ItemKNN):
+        name = cls.__name__
+        conf = graph_conf(name, {}, **KNN_CONF)
+        models = {dev: cls(conf, train, test, device=dev) for dev in ("cpu", "cuda")}
+        out = {}
+        for dev, m in models.items():
+            m.train()
+            out[dev] = knn_neighbours(m)
+        with knobs(SELFREC_TPU_DENSE_BUDGET_GB="1e-9"):
+            models["cuda"].train()  # the blocked edge-list build
+            out["blocked"] = knn_neighbours(models["cuda"])
+        for what, got in (("neighbours", out["cuda"]), ("blocked build", out["blocked"])):
+            for a, b in zip(got, out["cpu"]):
+                if not torch.equal(a, b):
+                    raise RuntimeError(f"{name} reference phase: the card's {what} differ "
+                                       f"from the CPU's dense build")
+        recs = {dev: m.test() for dev, m in models.items()}
+        plan = ranking.get_eval_plan(models["cpu"].data, 512, "cpu")
+        cpu_scores = torch.cat([models["cpu"]._score_block(u)[:v] for u, _, _, v
+                                in plan.blocks])
+        item_id = models["cpu"].data.item
+        n_off = 0
+        for row, user in enumerate(models["cpu"].data.test_user_ids):
+            uname = models["cpu"].data.id2user[user]
+            got, want = recs["cuda"][uname], recs["cpu"][uname]
+            gs, ws = np.array([x[1] for x in got]), np.array([x[1] for x in want])
+            if not np.allclose(gs, ws, rtol=1e-5, atol=1e-7):
+                raise RuntimeError(f"{name} reference phase: user {uname}'s scores differ")
+            for (gi, _), (wi, _) in zip(got, want):
+                if gi != wi:
+                    n_off += 1
+                    a, b = (float(cpu_scores[row, item_id[x]]) for x in (gi, wi))
+                    if not np.isclose(a, b, rtol=1e-5, atol=1e-7):
+                        raise RuntimeError(f"{name} reference phase: user {uname} ranks "
+                                           f"{gi} for {wi}, CPU scores {a} vs {b}")
+        log(f"[reference] {name} small graph: sims and ids on the card equal the CPU's, the "
+            f"blocked build equals the dense build; rec lists of {len(recs['cpu'])} users "
+            f"score alike ({n_off} ids differ, all within score ties)")
+
+
+def knn_neighbours(model):
+    """A trained KNN model's neighbours on the CPU: UserKNN's (sims, ids),
+    ItemKNN's kept similarity edges (src, dst, w)."""
+    if hasattr(model, "neighbor_sims"):
+        return model.neighbor_sims.cpu(), model.neighbor_ids.cpu()
+    return tuple(t.cpu() for t in (model._sim_adj.src, model._sim_adj.dst, model._sim_adj.w))
+
+
+def knn_path(tag, model, counters):
+    """KNN on the yelp graph: the similarity build (train()) twice and the
+    eval (test(): the rec list through the scatter-mask plan), with the
+    kernels' counts set to 0 just before and read just after: no K1 or K2
+    launch. Returns the launches."""
+    import torch
+
+    for c in counters:
+        c.launches = 0
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        model.train()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.time() - t0))
+    t0 = time.time()
+    rec = model.test()
+    eval_ms = 1e3 * (time.time() - t0)
+    launches = sum(c.launches for c in counters)
+    if launches:
+        raise RuntimeError(f"{tag}: {launches} kernel launches, expected none")
+    knn_rec_check(tag, rec, model.data)
+    saturated = sum(s == 1.0 for v in rec.values() for _, s in v) / (20 * len(rec))
+    log(f"[knn {tag}] build {times[0]:.1f} ms, again {times[1]:.1f} ms; eval (rec list of "
+        f"{len(rec)} users) {eval_ms:.1f} ms, {100 * saturated:.1f}% of listed scores at 1.0; "
+        f"launches {launches}")
+    profile_window(f"build {tag}", model.train, 1)
+    profile_window(f"eval {tag}", model.test, 1)
+    return launches
+
+
 def yelp_model(cls, name, extra, data, dense):
     import torch
 
@@ -1009,8 +1280,12 @@ def main():
     from selfrec_tpu_torch.models.graph.sgl import SGL
     from selfrec_tpu_torch.models.graph.simgcl import SimGCL
     from selfrec_tpu_torch.models.graph.ssl4rec import SSL4Rec
+    from selfrec_tpu_torch.models.graph.itemknn import ItemKNN
+    from selfrec_tpu_torch.models.graph.userknn import UserKNN
     from selfrec_tpu_torch.models.graph.xsimgcl import XSimGCL
-    from selfrec_tpu_torch.ops import cuda_build, dense_dual, ell_gather
+    from selfrec_tpu_torch.ops import cuda_build, dense_dual, ell_gather, ranking
+    from selfrec_tpu_torch.ops.graph import NormAdj
+    from selfrec_tpu_torch.ops.spmm_ell import EllAdj
     from selfrec_tpu_torch.utils.synth import synth_graph_mapped
 
     disable_tf32()
@@ -1174,6 +1449,66 @@ def main():
     k1_paths["ssl4rec_eval"] = eval_path("SSL4Rec", model, no_kernel, expect=0, width=128)
     del model
     torch.cuda.empty_cache()
+
+    # The budget fallbacks, forced on the yelp graph by lowering the budgets
+    # SimGCL int8x8 with the CSR sampler (the 150 MB bitmap over 100 MB) and
+    # the scatter-mask eval --------------------------------------------------
+    with knobs(SELFREC_TPU_NEG_BITMAP_MB="100"):
+        model = yelp_model(SimGCL, "SimGCL", SIMGCL, data, dense=True)
+    sampler_gates(model)
+    csr_on_card_gate(model)
+    k1_paths["simgcl_csr_train"] = train_path(
+        "SimGCL int8x8 CSR sampler", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
+        per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
+    with knobs(SELFREC_TPU_EVAL_MASK="scatter"):
+        k1_paths["simgcl_scatter_eval"] = eval_path("SimGCL int8x8 scatter mask", model,
+                                                    dense_dual.dual_matmul, profile=True)
+    scatter_eval_gate("SimGCL int8x8", model)
+    del model
+    torch.cuda.empty_cache()
+
+    # over budget under auto: the 1.205 GB block and mask over 1.0 GB, so
+    # LightGCN lands on ELL (K2 at P = 1) and ranks through the scatter mask;
+    # the epoch's batches shuffled on the host ----------------------------
+    with knobs(SELFREC_TPU_DENSE="auto", SELFREC_TPU_DENSE_BUDGET_GB="1.0",
+               SELFREC_TPU_HOST_BATCHES="1"):
+        model = LightGCN(graph_conf("LightGCN", {"n_layer": 3}), *data, device="cuda")
+        model.build()
+        if not isinstance(model.adj, EllAdj) or ranking.get_rated_dense(model.data, "cuda") \
+                is not None:
+            raise RuntimeError(f"over-budget phase: {model.adj!r}, or a resident mask")
+        log(f"[setup] LightGCN over budget under auto: {model.adj!r}, no resident mask")
+        k2_paths["lightgcn_auto_ell_train"] = train_path(
+            "LightGCN auto over budget (ELL, host batches)", model, ell_gather.ell_gather_sum,
+            N_SHORT_BATCHES, per_step=2 * model.n_layers)
+        k2_paths["lightgcn_auto_ell_eval"] = eval_path(
+            "LightGCN auto over budget (ELL, scatter mask)", model, ell_gather.ell_gather_sum)
+    del model
+    torch.cuda.empty_cache()
+
+    # SELFREC_TPU_ELL=0: LightGCN on the edge-list NormAdj, no kernel --------
+    with knobs(SELFREC_TPU_ELL="0"):
+        model = yelp_model(LightGCN, "LightGCN", {"n_layer": 3}, data, dense=False)
+    if not isinstance(model.adj, NormAdj):
+        raise RuntimeError(f"SELFREC_TPU_ELL=0 phase: {model.adj!r}")
+    k1_paths["lightgcn_normadj_train"] = train_path(
+        "LightGCN NormAdj", model, no_kernel, N_SHORT_BATCHES, per_step=0,
+        profile_steps=N_PROFILE_STEPS)
+    k1_paths["lightgcn_normadj_eval"] = eval_path("LightGCN NormAdj", model, no_kernel,
+                                                  expect=0)
+    del model
+    torch.cuda.empty_cache()
+
+    # UserKNN and ItemKNN (bench.py:808-855: topK 50, shrinkage 100): card
+    # against CPU on the small graph, then the yelp builds and evals --------
+    knn_reference_phase()
+    for cls in (UserKNN, ItemKNN):
+        t0 = time.time()
+        model = cls(graph_conf(cls.__name__, {}, **KNN_CONF), *data, device="cuda")
+        log(f"[setup] {cls.__name__}: {time.time() - t0:.1f} s")
+        k1_paths[f"{cls.__name__.lower()}"] = knn_path(cls.__name__, model, no_kernel)
+        del model
+        torch.cuda.empty_cache()
 
     k1_main = next(r for r in k1_rows if r["tag"] == "yelp" and r["shape"][2] == 192)
     k1f_main = next(r for r in k1f_rows if r["tag"] == "yelp" and r["shape"][2] == 64

@@ -23,8 +23,8 @@ MODEL_REGISTRY: Dict[str, Tuple[Optional[str], str, str]] = {
     "BUIR": ("selfrec_tpu_torch.models.graph.buir", "BUIR", "graph"),
     "SelfCF": ("selfrec_tpu_torch.models.graph.selfcf", "SelfCF", "graph"),
     "SSL4Rec": ("selfrec_tpu_torch.models.graph.ssl4rec", "SSL4Rec", "graph"),
-    "UserKNN": (None, "UserKNN", "graph"),
-    "ItemKNN": (None, "ItemKNN", "graph"),
+    "UserKNN": ("selfrec_tpu_torch.models.graph.userknn", "UserKNN", "graph"),
+    "ItemKNN": ("selfrec_tpu_torch.models.graph.itemknn", "ItemKNN", "graph"),
     "MHCN": (None, "MHCN", "graph"),
     "SEPT": (None, "SEPT", "graph"),
     "SASRec": (None, "SASRec", "sequential"),

@@ -282,7 +282,8 @@ class TorchGraphRecommender(GraphRecommender):
         self.generator.manual_seed(self.seed)
         if conf.contain("compute.dtype"):
             set_compute_dtype(conf["compute.dtype"])
-        self._rated_bitmap = None
+        self._rated_items = self._rated_offsets = self._rated_bitmap = None
+        self._n_search_steps = 1
         self.params: Optional[Dict[str, torch.Tensor]] = None
         self.optimizer = None
         self.aux: Dict[str, Any] = {}
@@ -347,26 +348,34 @@ class TorchGraphRecommender(GraphRecommender):
 
     def build(self):
         self.set_params(self.init_params(self.generator))
-        # packed-bitmap negative sampler when the (U, ceil(I/32)) uint32
-        # bitmap fits the budget (base.py:453-471)
+        # the rated CSR on the device, and the packed-bitmap sampler when
+        # the (U, ceil(I/32)) uint32 bitmap fits SELFREC_TPU_NEG_BITMAP_MB
+        # (base.py:453-471); else the CSR binary-search sampler
+        self._rated_items = torch.as_tensor(self.data.rated_items, device=self.device)
+        self._rated_offsets = torch.as_tensor(self.data.rated_offsets, device=self.device)
+        max_deg = int(self.data.rated_counts().max()) if self.data.user_num else 1
+        self._n_search_steps = max(1, int(np.ceil(np.log2(max_deg + 1))) + 1)
+        self._rated_bitmap = None
         if self.data.user_num:
             words = (self.data.item_num + 31) // 32
             budget_mb = float(os.environ.get("SELFREC_TPU_NEG_BITMAP_MB", "512"))
-            if self.data.user_num * words * 4 > budget_mb * 1e6:
-                raise NotImplementedError(
-                    "rated bitmap exceeds SELFREC_TPU_NEG_BITMAP_MB; the CSR "
-                    "binary-search sampler is not ported (ROADMAP.md)")
-            self._rated_bitmap = sampling.bitmap_to_device(
-                sampling.pack_rated_bitmap(
-                    self.data.rated_offsets, self.data.rated_items,
-                    self.data.user_num, self.data.item_num), self.device)
+            if self.data.user_num * words * 4 <= budget_mb * 1e6:
+                self._rated_bitmap = sampling.bitmap_to_device(
+                    sampling.pack_rated_bitmap(
+                        self.data.rated_offsets, self.data.rated_items,
+                        self.data.user_num, self.data.item_num), self.device)
 
     def sample_negatives(self, users: torch.Tensor) -> torch.Tensor:
         shape = (tuple(users.shape) if self.n_negs == 1
                  else (users.shape[0], self.n_negs))
-        return sampling.sample_negatives_bitmap(
-            self.generator, users, self._rated_bitmap, self.data.item_num,
-            shape=shape, n_rounds=self.n_neg_rounds)
+        if self._rated_bitmap is not None:
+            return sampling.sample_negatives_bitmap(
+                self.generator, users, self._rated_bitmap, self.data.item_num,
+                shape=shape, n_rounds=self.n_neg_rounds)
+        return sampling.sample_negatives(
+            self.generator, users, self._rated_items, self._rated_offsets,
+            self.data.item_num, shape=shape, n_rounds=self.n_neg_rounds,
+            n_search_steps=self._n_search_steps)
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One step: negatives, loss and grads, Adam, step_update. Returns
@@ -390,7 +399,17 @@ class TorchGraphRecommender(GraphRecommender):
 
     def epoch_batches(self, epoch: int):
         """This epoch's shuffled batches, drawn on the device from a generator
-        seeded as a pure function of (seed, epoch)."""
+        seeded as a pure function of (seed, epoch); with
+        ``SELFREC_TPU_HOST_BATCHES=1`` shuffled on the host from
+        :meth:`epoch_rng` and copied to the device, the JAX package's host
+        path (base.py:583-592), whose batches they equal."""
+        if os.environ.get("SELFREC_TPU_HOST_BATCHES") == "1":
+            users, items, masks = sampling.epoch_pairwise_batches(
+                self.epoch_rng(epoch), self.data.edge_users, self.data.edge_items,
+                self.batch_size)
+            return (torch.as_tensor(users, dtype=torch.int64, device=self.device),
+                    torch.as_tensor(items, dtype=torch.int64, device=self.device),
+                    torch.as_tensor(masks, device=self.device))
         if self._edges_dev is None:
             self._edges_dev = (
                 torch.as_tensor(self.data.edge_users, device=self.device),

@@ -1,13 +1,13 @@
 """Graph propagation ops (counterpart of ``selfrec_tpu/ops/graph.py``).
 
 :func:`spmm` dispatches on the adjacency's layout: the dense-bipartite
-block (:mod:`selfrec_tpu_torch.ops.spmm_dense`, kernel K1 in int8 mode) or
-the row-split ELL layout (:mod:`selfrec_tpu_torch.ops.spmm_ell`, kernel
-K2). :func:`norm_adj_from_scipy` picks between them by the JAX package's
-own gate (``SELFREC_TPU_DENSE``). Not ported yet: the edge-list
-``NormAdj`` (``SELFREC_TPU_ELL=0``), ``union_ell_template``, the dense
-``DenseMat`` and the sharded layouts (ROADMAP.md, "ELL remainders" and
-"Scale-out").
+block (:mod:`selfrec_tpu_torch.ops.spmm_dense`, kernel K1), the row-split
+ELL layout (:mod:`selfrec_tpu_torch.ops.spmm_ell`, kernel K2) or the
+edge-list :class:`NormAdj` (a gather and a segment sum in plain torch, as
+the JAX package computes it in XLA). :func:`norm_adj_from_scipy` picks
+between them by the JAX package's own gates (``SELFREC_TPU_DENSE``,
+``SELFREC_TPU_ELL``). Not ported yet: ``union_ell_template``, the dense
+``DenseMat`` and the sharded layouts (ROADMAP.md §1.6, §1.8).
 """
 
 from __future__ import annotations
@@ -24,16 +24,56 @@ from selfrec_tpu_torch.ops.spmm_ell import (EllAdj, ell_adj_from_edges, ell_spmm
                                             ell_spmm_packed)
 
 
+class NormAdj:
+    """Normalized sparse adjacency in edge-list form (graph.py:29-54):
+    ``out[d] = sum of w[e] * x[src[e]] over edges e with dst[e] == d``,
+    ``n_nodes`` output rows. ``sorted_by_dst`` records that the edges come
+    in destination order, as :func:`norm_adj_from_scipy` builds them."""
+
+    def __init__(self, src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                 n_nodes: int, sorted_by_dst: bool = False):
+        self.src = src
+        self.dst = dst
+        self.w = w
+        self.n_nodes = n_nodes
+        self.sorted_by_dst = sorted_by_dst
+
+    @property
+    def edge_w(self) -> torch.Tensor:
+        """The edge weights, under the name the other layouts give them."""
+        return self.w
+
+    def __repr__(self):
+        return f"NormAdj(E={self.src.shape[0]}, n_nodes={self.n_nodes})"
+
+
+def norm_adj_spmm(adj: NormAdj, x: torch.Tensor) -> torch.Tensor:
+    """Gather the rows ``x[src]``, scale by ``w`` and sum into ``dst``
+    (graph.py:85-89), differentiable in ``x`` and ``w``. On the CPU
+    ``index_add`` sums each row's edges in edge order, as XLA's segment sum
+    does there; on CUDA it adds with float atomics, whose order, and so the
+    last bits of a sum, varies from run to run. The gather is
+    ``index_select``, whose gradient is one ``index_add`` into ``x``'s
+    rows; advanced indexing's gradient sorts the indices first, which made
+    the backward the larger part of a LightGCN step on the card. A
+    row-major ``x`` keeps the gather's reads of each row contiguous."""
+    contrib = x.index_select(0, adj.src) * adj.w[:, None]
+    out = torch.zeros((adj.n_nodes,) + tuple(x.shape[1:]), dtype=contrib.dtype,
+                      device=contrib.device)
+    return out.index_add(0, adj.dst, contrib)
+
+
 def spmm(adj, x: torch.Tensor) -> torch.Tensor:
     """(normalized adjacency) @ (embeddings) over the unified node space."""
     if isinstance(adj, DenseAdj):
         return dense_spmm(adj, x)
     if isinstance(adj, EllAdj):
         return ell_spmm(adj, x)
+    if isinstance(adj, NormAdj):
+        return norm_adj_spmm(adj, x)
     raise NotImplementedError(
-        f"spmm over {type(adj).__name__}: the port propagates DenseAdj and "
-        "EllAdj; the other layouts are queued in ROADMAP.md (\"ELL "
-        "remainders\", \"Scale-out\")")
+        f"spmm over {type(adj).__name__}: the port propagates DenseAdj, EllAdj "
+        "and NormAdj; the other layouts are queued in ROADMAP.md (§1.6, §1.8)")
 
 
 def spmm_packed(adj, w_edge_stack: torch.Tensor, x: torch.Tensor,
@@ -178,23 +218,26 @@ def adj_dropout(adj, rate, keep: Optional[torch.Tensor] = None,
     scale kept weights by 1 / (1 - rate), with no degree renormalization.
     ``rate`` may be a 0-d tensor.
 
-    A DenseAdj takes :meth:`DenseAdj.dropout_view`; an EllAdj is reweighted
-    with ``where(keep, w / (1 - rate), 0)`` over its edges in their original
-    order, both directions alike. ``keep`` (E,) bool over the adjacency's
-    edge order is drawn as ``rand(E) >= rate`` from ``generator`` when not
-    given. Other layouts raise, as :func:`spmm` does."""
+    A DenseAdj takes :meth:`DenseAdj.dropout_view`; an EllAdj (over its
+    edges in their original order, both directions alike) and a NormAdj are
+    reweighted with ``where(keep, w / (1 - rate), 0)``. ``keep`` (E,) bool
+    over the adjacency's edge order is drawn as ``rand(E) >= rate`` from
+    ``generator`` when not given. Other layouts raise, as :func:`spmm`
+    does."""
     if isinstance(adj, DenseAdj):
         return adj.dropout_view(rate, keep=keep, generator=generator)
+    if not isinstance(adj, (EllAdj, NormAdj)):
+        raise NotImplementedError(
+            f"adj_dropout over {type(adj).__name__}: the port drops edges of "
+            "DenseAdj, EllAdj and NormAdj; the other layouts are queued in "
+            "ROADMAP.md (§1.6, §1.8)")
+    if keep is None:
+        keep = torch.rand(adj.edge_w.shape, generator=generator,
+                          device=adj.edge_w.device) >= rate
+    w = torch.where(keep, adj.edge_w / (1.0 - rate), torch.zeros_like(adj.edge_w))
     if isinstance(adj, EllAdj):
-        if keep is None:
-            keep = torch.rand(adj.edge_w.shape, generator=generator,
-                              device=adj.edge_w.device) >= rate
-        return adj.reweight(torch.where(keep, adj.edge_w / (1.0 - rate),
-                                        torch.zeros_like(adj.edge_w)))
-    raise NotImplementedError(
-        f"adj_dropout over {type(adj).__name__}: the port drops edges of DenseAdj "
-        "and EllAdj; the other layouts are queued in ROADMAP.md (\"ELL "
-        "remainders\", \"Scale-out\")")
+        return adj.reweight(w)
+    return NormAdj(adj.src, adj.dst, w, adj.n_nodes, adj.sorted_by_dst)
 
 
 def norm_adj_from_scipy(norm_adj, n_users: Optional[int] = None, k: int = 16,
@@ -208,9 +251,10 @@ def norm_adj_from_scipy(norm_adj, n_users: Optional[int] = None, k: int = 16,
     ``SELFREC_TPU_DENSE_BUDGET_GB``, anything else (default ``auto``) only
     when it fits and ``device`` is CUDA, and in every case only when the
     matrix is symmetric-bipartite. Otherwise the row-split ELL layout, with
-    K from ``SELFREC_TPU_ELL_K`` (default ``k``); rectangular matrices have
-    rows as destinations. ``SELFREC_TPU_ELL=0`` (the edge-list NormAdj)
-    raises: it is not ported."""
+    K from ``SELFREC_TPU_ELL_K`` (default ``k``), or with
+    ``SELFREC_TPU_ELL=0`` the edge-list :class:`NormAdj`, its edges sorted
+    by destination (graph.py:430-438); rectangular matrices have rows as
+    destinations."""
     device = torch.device(device)
     coo = norm_adj.tocoo()
     dense_mode = os.environ.get("SELFREC_TPU_DENSE", "auto")
@@ -225,9 +269,11 @@ def norm_adj_from_scipy(norm_adj, n_users: Optional[int] = None, k: int = 16,
                 return spmm_dense.dense_adj_from_edges(eu, ei, w, n_users,
                                                        n_items, device=device)
     if os.environ.get("SELFREC_TPU_ELL", "1") == "0":
-        raise NotImplementedError(
-            "SELFREC_TPU_ELL=0 asks for the edge-list NormAdj, which is not "
-            "ported (ROADMAP.md, \"ELL remainders\")")
+        order = np.argsort(coo.row, kind="stable")
+        as_dev = lambda a, dt: torch.as_tensor(a[order].astype(dt), device=device)
+        return NormAdj(as_dev(coo.col, np.int64), as_dev(coo.row, np.int64),
+                       as_dev(coo.data, np.float32), norm_adj.shape[0],
+                       sorted_by_dst=True)
     k = int(os.environ.get("SELFREC_TPU_ELL_K", k))
     return ell_adj_from_edges(
         coo.col.astype(np.int32), coo.row.astype(np.int32),

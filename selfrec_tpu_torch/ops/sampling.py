@@ -1,11 +1,16 @@
 """On-device negative sampling and epoch batching (counterpart of
-``selfrec_tpu/ops/sampling.py:86-300``).
+``selfrec_tpu/ops/sampling.py``).
 
 Replaces the reference's host rejection loop (reference/util/
 sampler.py:23-27) with a vectorised sampler: draw uniform candidates, test
-membership in a packed per-user bitmap, redraw colliding lanes for a fixed
-number of rounds. Draws come from a ``torch.Generator``, so the numbers
-differ from the JAX package's; the rejection semantics are the same.
+membership in the user's rated set, redraw colliding lanes for a fixed
+number of rounds. Membership is a probe of a packed per-user bitmap
+(:func:`sample_negatives_bitmap`) or, where the bitmap is over its budget,
+a binary search of the per-user sorted rated CSR
+(:func:`sample_negatives`). Both draw the same numbers in the same order
+from a ``torch.Generator``, so for one generator state they return the
+same negatives; the numbers differ from the JAX package's, the rejection
+semantics are the same.
 """
 
 from __future__ import annotations
@@ -35,6 +40,68 @@ def bitmap_to_device(bitmap: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(bitmap.view(np.int32), device=device)
 
 
+def searchsorted_in_segments(flat_sorted: torch.Tensor, offsets: torch.Tensor,
+                             seg_ids: torch.Tensor, values: torch.Tensor,
+                             n_search_steps: int) -> torch.Tensor:
+    """Vectorised membership test (sampling.py:23-49): ``values[k]`` in
+    ``flat_sorted[offsets[s]:offsets[s + 1]]`` with ``s = seg_ids[k]``.
+    A binary search of ``n_search_steps`` >= ceil(log2(longest segment +
+    1)) steps, ``mid`` clamped into the array, and a hit counted only
+    where the search stayed inside its segment (``lo < hi0``), so empty
+    segments find nothing."""
+    size = flat_sorted.shape[0]
+    if size == 0:
+        return torch.zeros(values.shape, dtype=torch.bool, device=values.device)
+    seg_ids = seg_ids.long()
+    lo = offsets[seg_ids].long()
+    hi = offsets[seg_ids + 1].long()
+    hi0 = hi
+    for _ in range(n_search_steps):
+        mid = (lo + hi) >> 1
+        go_right = flat_sorted[mid.clamp(0, size - 1)] < values
+        lo, hi = torch.where(go_right, mid + 1, lo), torch.where(go_right, hi, mid)
+    return (lo < hi0) & (flat_sorted[lo.clamp(0, size - 1)] == values)
+
+
+def _rejection_rounds(generator, users, n_items, n_rounds, is_rated):
+    """``cand`` uniform over the catalog, then ``n_rounds`` rounds each
+    drawing one ``fresh`` candidate a lane and taking it where ``cand`` is
+    rated: the draw order both samplers share."""
+    dev = users.device
+    cand = torch.randint(0, n_items, users.shape, generator=generator,
+                         device=dev, dtype=torch.int64)
+    for _ in range(n_rounds):
+        bad = is_rated(cand)
+        fresh = torch.randint(0, n_items, users.shape, generator=generator,
+                              device=dev, dtype=torch.int64)
+        cand = torch.where(bad, fresh, cand)
+    return cand
+
+
+def _lanes(user_idx: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    users = user_idx.reshape(-1).to(torch.int64)
+    if len(shape) == 2:
+        users = torch.repeat_interleave(users, shape[1])
+    return users
+
+
+def sample_negatives(generator: torch.Generator, user_idx: torch.Tensor,
+                     rated_items: torch.Tensor, rated_offsets: torch.Tensor,
+                     n_items: int, shape: Tuple[int, ...], n_rounds: int = 8,
+                     n_search_steps: int = 16) -> torch.Tensor:
+    """Uniform negatives for each (user, slot) in ``shape`` = (B,) or
+    (B, n_negs) with the CSR membership test (sampling.py:52-83): the
+    sampler for a rated bitmap over ``SELFREC_TPU_NEG_BITMAP_MB``. Draws as
+    :func:`sample_negatives_bitmap` does, so the two return the same
+    negatives for one generator state."""
+    users = _lanes(user_idx, shape)
+    cand = _rejection_rounds(
+        generator, users, n_items, n_rounds,
+        lambda c: searchsorted_in_segments(rated_items, rated_offsets, users, c,
+                                           n_search_steps))
+    return cand.reshape(shape)
+
+
 def sample_negatives_bitmap(generator: torch.Generator, user_idx: torch.Tensor,
                             rated_bitmap: torch.Tensor, n_items: int,
                             shape: Tuple[int, ...],
@@ -47,18 +114,10 @@ def sample_negatives_bitmap(generator: torch.Generator, user_idx: torch.Tensor,
     The JAX package compacts the failing lanes for very wide lane counts, a
     TPU gather optimisation whose semantics equal the dense loop's; this
     port runs the dense loop at every width."""
-    users = user_idx.reshape(-1).to(torch.int64)
-    if len(shape) == 2:
-        users = torch.repeat_interleave(users, shape[1])
-    dev = users.device
-    cand = torch.randint(0, n_items, users.shape, generator=generator,
-                         device=dev, dtype=torch.int64)
-    for _ in range(n_rounds):
-        word = rated_bitmap[users, cand >> 5]
-        bad = ((word >> (cand & 31)) & 1) != 0
-        fresh = torch.randint(0, n_items, users.shape, generator=generator,
-                              device=dev, dtype=torch.int64)
-        cand = torch.where(bad, fresh, cand)
+    users = _lanes(user_idx, shape)
+    cand = _rejection_rounds(
+        generator, users, n_items, n_rounds,
+        lambda c: ((rated_bitmap[users, c >> 5] >> (c & 31)) & 1) != 0)
     return cand.reshape(shape)
 
 
@@ -78,10 +137,40 @@ def unique_with_mask(idx: torch.Tensor, size: int):
     return torch.where(mask, uniq, torch.zeros_like(uniq)), mask
 
 
+def epoch_pointwise_batches(rng, edge_users, edge_items, n_items: int,
+                            batch_size: int, n_negs: int = 4):
+    """Pointwise epoch batches (sampling.py:199-238; reference
+    util/sampler.py:31-55, which no shipped model calls): each shuffled
+    positive labelled 1 followed by ``n_negs`` uniform items labelled 0,
+    cut into (n_batches, batch_size) users, items, labels and a validity
+    mask. Identical to the JAX package's for one numpy generator."""
+    n = len(edge_users)
+    perm = rng.permutation(n)
+    group = 1 + n_negs
+    users = np.repeat(edge_users[perm], group)
+    items = np.empty(n * group, dtype=np.int32)
+    items[::group] = edge_items[perm]
+    labels = np.zeros(n * group, dtype=np.float32)
+    labels[::group] = 1.0
+    for k in range(1, group):
+        items[k::group] = rng.integers(0, n_items, n, dtype=np.int32)
+    total = n * group
+    n_batches = -(-total // batch_size)
+    pad = n_batches * batch_size - total
+    users = np.concatenate([users, np.zeros(pad, np.int32)])
+    items = np.concatenate([items, np.zeros(pad, np.int32)])
+    labels = np.concatenate([labels, np.zeros(pad, np.float32)])
+    mask = np.concatenate([np.ones(total, np.float32), np.zeros(pad, np.float32)])
+    shape = (n_batches, batch_size)
+    return (users.reshape(shape), items.reshape(shape), labels.reshape(shape),
+            mask.reshape(shape))
+
+
 def epoch_pairwise_batches(rng, edge_users, edge_items, batch_size: int):
     """Host-side epoch batching: shuffle the edge list once per epoch and cut
     into fixed-size batches (last batch padded, with a validity mask).
-    Identical to sampling.py:241-271 (reference util/sampler.py:5-18)."""
+    Identical to sampling.py:241-271 (reference util/sampler.py:5-18); the
+    trainer's path under ``SELFREC_TPU_HOST_BATCHES=1``."""
     n = len(edge_users)
     perm = rng.permutation(n)
     n_batches = -(-n // batch_size)

@@ -293,13 +293,19 @@ def adj_edge_perm(adj: DenseAdj, edge_users, edge_items, n_items: int) -> np.nda
     return order[pos].astype(np.int32)
 
 
-def fits_dense(n_users: int, n_items: int, dtype=None) -> bool:
-    """Whether one dense (n_users, n_items) block of ``dtype`` fits the
-    configured device-memory budget (``SELFREC_TPU_DENSE_BUDGET_GB``,
-    default 5)."""
+def fits_dense_elems(n_elems: int, dtype=None) -> bool:
+    """Whether ``n_elems`` dense values of ``dtype`` (default the dense
+    mode's) fit the configured device-memory budget
+    (``SELFREC_TPU_DENSE_BUDGET_GB``, default 5; spmm_dense.py:290-299)."""
     budget_gb = float(os.environ.get("SELFREC_TPU_DENSE_BUDGET_GB", "5"))
     itemsize = torch.empty((), dtype=dtype or _dense_dtype()).element_size()
-    return n_users * n_items * itemsize <= budget_gb * 1e9
+    return n_elems * itemsize <= budget_gb * 1e9
+
+
+def fits_dense(n_users: int, n_items: int, dtype=None) -> bool:
+    """Whether one dense (n_users, n_items) block of ``dtype`` fits the
+    budget."""
+    return fits_dense_elems(n_users * n_items, dtype)
 
 
 def bipartite_blocks(coo, n_users: int):

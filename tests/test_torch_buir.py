@@ -3,8 +3,10 @@ runs on: ``DenseAdj.dropout_view`` and ``adj_dropout``.
 
 Models run on a small synthetic graph (600 users, 900 items, D 16, 2
 layers) in the dense bf16 mode that the JAX package pins BUIR to
-(``SELFREC_TPU_DENSE=1``, bench.py:690-712) and on the ELL layout, where
-both chains run as one packed width-2D chain. Both packages start from the
+(``SELFREC_TPU_DENSE=1``, bench.py:690-712), on the ELL layout, where
+both chains run as one packed width-2D chain, and on the edge-list
+``NormAdj`` (``SELFREC_TPU_ELL=0``), which packs nothing, so BUIR takes its
+unpacked branch there as on the dense block. Both packages start from the
 same weights and target tables; the port is handed the rates and keep
 draws that JAX makes from its key (``split(key)`` into k_on, k_tg; each
 ``split`` into k_rate, k_keep; ``uniform(k_rate) * drop_rate`` and
@@ -167,7 +169,7 @@ def jax_views(key, n_edges, drop_rate):
     return views
 
 
-MODES = ["bfloat16", "ell"]
+MODES = ["bfloat16", "ell", "edgelist"]
 
 
 @pytest.mark.parametrize("mode", MODES)

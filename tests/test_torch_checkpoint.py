@@ -26,6 +26,9 @@ CASES = {
                     {"SELFREC_TPU_DENSE": "0"}),
     "XSimGCL-int8": ({"n_layer": 2, "l_star": 1, "lambda": 0.2, "eps": 0.2, "tau": 0.15},
                      {"SELFREC_TPU_DENSE": "1", "SELFREC_TPU_DENSE_DTYPE": "int8"}),
+    # the CSR sampler (bitmap over budget) and the host shuffle
+    "MF-csr-hostbatches": ({}, {"SELFREC_TPU_NEG_BITMAP_MB": "0.0001",
+                                "SELFREC_TPU_HOST_BATCHES": "1"}),
     # history buffers in aux, dotted predictor keys in Adam's state
     "SelfCF-bf16": ({"n_layer": 2, "tau": 0.05},
                     {"SELFREC_TPU_DENSE": "1", "SELFREC_TPU_DENSE_DTYPE": "bfloat16"}),
@@ -78,6 +81,22 @@ def test_resume_at_epoch_two_equals_a_continuous_run(tiny_graph_dataset, tmp_pat
         assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
     assert torch.equal(resumed.generator.get_state(), full.generator.get_state())
     assert resumed.best_performance == full.best_performance
+
+
+def test_resume_does_not_care_which_sampler_ran(tiny_graph_dataset, tmp_path, monkeypatch):
+    """Two epochs on the CSR sampler, resumed to four on the bitmap sampler,
+    equal four continuous epochs on the bitmap sampler: both samplers draw
+    the same negatives from the step generator, whose state the checkpoint
+    keeps."""
+    full = _run(tiny_graph_dataset, _conf(tmp_path / "full", "MF", 4))
+    monkeypatch.setenv("SELFREC_TPU_NEG_BITMAP_MB", "0.0001")
+    first = _run(tiny_graph_dataset, _conf(tmp_path, "MF", 2))
+    assert first._rated_bitmap is None
+    monkeypatch.delenv("SELFREC_TPU_NEG_BITMAP_MB")
+    resumed = _run(tiny_graph_dataset, _conf(tmp_path, "MF", 4))
+    assert resumed._rated_bitmap is not None
+    for k in full.params:
+        assert torch.equal(resumed.params[k], full.params[k]), k
     assert torch.equal(resumed.best_user_emb, full.best_user_emb)
 
 

@@ -1,7 +1,9 @@
 """Config keys and eval knobs that the JAX package acts on are never
 silently ignored by the port: each is honoured as there (the checkpoint
-and profiler keys), or raises and names ROADMAP.md (a mesh above one
-device, ``distributed``, the eval knobs the port lacks)."""
+and profiler keys, the eval mask and top-k knobs), or raises and names
+ROADMAP.md (a mesh above one device, ``distributed``, an unknown
+``SELFREC_TPU_EVAL_TOPK``). The eval knobs' cases rank as the JAX package
+does on the same embeddings: ids and metric strings equal."""
 
 import os
 
@@ -9,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from selfrec_tpu.config import ModelConf as JaxConf
+from selfrec_tpu.data.interaction import Interaction as JaxInteraction
+from selfrec_tpu.ops import ranking as jax_ranking
 from selfrec_tpu_torch.config import ModelConf
 from selfrec_tpu_torch.data.interaction import Interaction
 from selfrec_tpu_torch.models.graph.simgcl import SimGCL
@@ -89,11 +94,30 @@ def _measure(data, ue, ie):
                                           sorted_test_keys=data.test_gt_sorted_keys())
 
 
+def _jax_ids(tiny_graph_dataset, ue, ie):
+    """The JAX package's top-10 ids on the same embeddings, under the knobs
+    set now."""
+    train, test = tiny_graph_dataset
+    jd = JaxInteraction(JaxConf(dict(CONF)), train, test)
+    return jax_ranking.topk_ids_from_embeddings(jd, ue.numpy(), ie.numpy(), 10)
+
+
 @pytest.mark.parametrize("value", ["approx", "approx:0.9", "something"])
-def test_eval_topk_other_than_exact_raises(eval_case, monkeypatch, value):
+def test_eval_topk_other_than_exact_raises(eval_case, tiny_graph_dataset, monkeypatch, value):
+    """``approx`` and ``approx:r`` rank exactly, as ``lax.approx_max_k``
+    does off the TPU (the JAX package's ids on the CPU); any other value
+    raises naming ROADMAP.md."""
+    exact = _measure(*eval_case)
     monkeypatch.setenv("SELFREC_TPU_EVAL_TOPK", value)
-    with pytest.raises(NotImplementedError, match="approximate top-k.*ROADMAP.md"):
-        _measure(*eval_case)
+    if value == "something":
+        with pytest.raises(NotImplementedError, match="approx.*ROADMAP.md"):
+            _measure(*eval_case)
+        return
+    assert ranking.eval_topk_recall() == (0.9 if value.endswith("0.9") else 0.95)
+    assert _measure(*eval_case) == exact
+    data, ue, ie = eval_case
+    np.testing.assert_array_equal(ranking.topk_ids_from_embeddings(data, ue, ie, 10),
+                                  _jax_ids(tiny_graph_dataset, ue, ie))
 
 
 def test_eval_topk_exact_ranks(eval_case, monkeypatch):
@@ -103,17 +127,34 @@ def test_eval_topk_exact_ranks(eval_case, monkeypatch):
     assert _measure(*eval_case) == exact
 
 
-def test_eval_mask_scatter_raises(eval_case, monkeypatch):
+def test_eval_mask_scatter_raises(eval_case, tiny_graph_dataset, monkeypatch):
+    """``SELFREC_TPU_EVAL_MASK=scatter`` ranks through the scatter-mask
+    plan, as the JAX package does (ranking.py:53-55), with no (U, I) mask
+    built, and equals the resident mask's ranking."""
+    data, ue, ie = eval_case
+    dense = _measure(data, ue, ie)
+    data._rated_dense_cache = None
     monkeypatch.setenv("SELFREC_TPU_EVAL_MASK", "scatter")
-    with pytest.raises(NotImplementedError, match=r"scatter-mask eval.*ROADMAP\.md §1\.4"):
-        _measure(*eval_case)
+    assert _measure(data, ue, ie) == dense
+    assert data._rated_dense_cache is None
+    np.testing.assert_array_equal(ranking.topk_ids_from_embeddings(data, ue, ie, 10),
+                                  _jax_ids(tiny_graph_dataset, ue, ie))
 
 
-def test_eval_mask_auto_over_budget_raises(eval_case, monkeypatch):
+def test_eval_mask_auto_over_budget_raises(eval_case, tiny_graph_dataset, monkeypatch):
+    """``auto`` with the mask over ``SELFREC_TPU_DENSE_BUDGET_GB`` builds no
+    mask and ranks through the scatter-mask plan (ranking.py:62-65), as the
+    JAX package does."""
+    data, ue, ie = eval_case
+    dense = _measure(data, ue, ie)
+    data._rated_dense_cache = None
     monkeypatch.setenv("SELFREC_TPU_EVAL_MASK", "auto")
     monkeypatch.setenv("SELFREC_TPU_DENSE_BUDGET_GB", "0")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _measure(*eval_case)
+    assert ranking.get_rated_dense(data, "cpu") is None
+    assert _measure(data, ue, ie) == dense
+    assert data._rated_dense_cache is None
+    np.testing.assert_array_equal(ranking.topk_ids_from_embeddings(data, ue, ie, 10),
+                                  _jax_ids(tiny_graph_dataset, ue, ie))
 
 
 def test_eval_mask_dense_builds_past_the_budget(eval_case, monkeypatch):

@@ -80,10 +80,10 @@ def test_registry_lists_every_model_and_refuses_unported():
 
     assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
     for name in ("SimGCL", "LightGCN", "SGL", "MF", "XSimGCL", "DirectAU", "MixGCF",
-                 "NCL", "BUIR", "SelfCF", "SSL4Rec"):
+                 "NCL", "BUIR", "SelfCF", "SSL4Rec", "UserKNN", "ItemKNN"):
         assert get_model_class(name).__name__ == name
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model_class("UserKNN")
+        get_model_class("MHCN")
     with pytest.raises(KeyError):
         get_model_class("NoSuchModel")
 
@@ -404,3 +404,63 @@ def test_dropout_view_on_the_card_keeps_b_and_its_transpose_alike(monkeypatch):
     assert int(fed.a_ui.sum()) == int(keep.sum())
     assert torch.equal(fed.a_ui.cpu(), cpu.dropout_view(0.3, keep=keep.cpu()).a_ui)
     assert int(adj.a_ui.sum()) == len(eu) and torch.equal(adj.a_iu, adj.a_ui.T)
+
+
+@pytest.mark.cuda
+def test_csr_sampler_on_the_card_matches_the_cpu():
+    """The CSR membership search on the card answers as on the CPU for the
+    same (user, candidate) pairs fed to both, empty segments included; on
+    the card the CSR sampler equals the bitmap sampler for one generator
+    seed and returns no rated item. Run as the dual kernel's test above."""
+    _needs_card()
+    from selfrec_tpu_torch.ops import sampling
+
+    rng = np.random.default_rng(0)
+    n_users, n_items = 300, 2000
+    counts = rng.integers(0, 60, n_users)
+    counts[::17] = 0
+    items = np.concatenate([np.sort(rng.choice(n_items, c, replace=False)) for c in counts])
+    items = items.astype(np.int32)
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    steps = int(np.ceil(np.log2(counts.max() + 1))) + 1
+    seg = torch.from_numpy(rng.integers(0, n_users, 200_000))
+    vals = torch.from_numpy(rng.integers(-1, n_items + 1, 200_000))
+    got = {dev: sampling.searchsorted_in_segments(
+        torch.from_numpy(items).to(dev), torch.from_numpy(off).to(dev), seg.to(dev),
+        vals.to(dev), steps).cpu() for dev in ("cpu", "cuda")}
+    assert torch.equal(got["cuda"], got["cpu"]) and bool(got["cpu"].any())
+    bitmap = sampling.bitmap_to_device(
+        sampling.pack_rated_bitmap(off, items, n_users, n_items), "cuda")
+    users = torch.from_numpy(rng.integers(0, n_users, 4096)).cuda()
+    csr = sampling.sample_negatives(torch.Generator(device="cuda").manual_seed(3), users,
+                                    torch.from_numpy(items).cuda(), torch.from_numpy(off).cuda(),
+                                    n_items, shape=(4096, 8), n_search_steps=steps)
+    bm = sampling.sample_negatives_bitmap(torch.Generator(device="cuda").manual_seed(3), users,
+                                          bitmap, n_items, shape=(4096, 8))
+    assert torch.equal(csr, bm)
+    lanes = users.repeat_interleave(8).cpu()
+    assert not bool(sampling.searchsorted_in_segments(
+        torch.from_numpy(items), torch.from_numpy(off), lanes, csr.reshape(-1).cpu(),
+        steps).any())
+
+
+@pytest.mark.cuda
+def test_knn_build_and_tie_order_on_the_card_match_the_cpu():
+    """``topk_lowest_index`` and the KNN similarity build (``torch._int_mm``
+    on the card, an int32 product on the CPU) give the CPU's values and ids
+    exactly. Run as the dual kernel's test above."""
+    _needs_card()
+    from selfrec_tpu_torch.ops import knn, ranking
+
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(-3, 4, size=(300, 5000)).astype(np.float32))
+    for a, b in zip(ranking.topk_lowest_index(x.cuda(), 50), ranking.topk_lowest_index(x, 50)):
+        assert torch.equal(a.cpu(), b)
+    n_dst, n_src = 1500, 901  # a ragged second block, columns padded to 960
+    key = np.unique(rng.integers(0, n_dst * n_src, 20 * n_dst))
+    dst, src = key // n_src, key % n_src
+    deg = torch.from_numpy(np.bincount(dst, minlength=n_dst).astype(np.float32))
+    got = {dev: knn.topk_shrunk_cosine(dst, src, n_dst, n_src, deg.to(dev), 100, 50)
+           for dev in ("cpu", "cuda")}
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert torch.equal(a.cpu(), b)

@@ -1,7 +1,8 @@
 """LightGCN of the port against the JAX package: one training step (loss,
 grads, Adam) and the propagated embeddings, on the ELL layout (the CPU's
 default under ``SELFREC_TPU_DENSE=auto``; K2's plain version, forward and
-the transpose-layout backward) and on the dense f32 block.
+the transpose-layout backward), on the edge-list NormAdj
+(``SELFREC_TPU_ELL=0``) and on the dense f32 block.
 
 Same weights (selfrec_tpu_torch.convert), batch and negatives in both
 packages. Tolerances as tests/test_torch_simgcl.py states them: loss rtol
@@ -28,6 +29,7 @@ from selfrec_tpu_torch import convert
 from selfrec_tpu_torch.config import ModelConf
 from selfrec_tpu_torch.models import get_model_class
 from selfrec_tpu_torch.ops import ell_gather
+from selfrec_tpu_torch.ops.graph import NormAdj
 from selfrec_tpu_torch.ops.spmm_dense import DenseAdj
 from selfrec_tpu_torch.ops.spmm_ell import EllAdj
 
@@ -50,6 +52,8 @@ def _models(monkeypatch, dataset, arm):
         monkeypatch.setenv("SELFREC_TPU_DENSE_DTYPE", "float32")
     else:
         monkeypatch.delenv("SELFREC_TPU_DENSE", raising=False)
+    if arm == "edgelist":
+        monkeypatch.setenv("SELFREC_TPU_ELL", "0")
     train, test = dataset
     jm = JaxLightGCN(JaxConf(_conf_dict()), train, test)
     jm.build()
@@ -57,7 +61,7 @@ def _models(monkeypatch, dataset, arm):
     tm.build()
     tm.set_params(convert.params_from_jax({k: np.asarray(v) for k, v in jm.params.items()},
                                           device="cpu"))
-    assert isinstance(tm.adj, EllAdj if arm == "ell" else DenseAdj)
+    assert isinstance(tm.adj, {"ell": EllAdj, "edgelist": NormAdj, "dense": DenseAdj}[arm])
     assert type(jm.adj).__name__ == type(tm.adj).__name__
     return jm, tm
 
@@ -72,7 +76,7 @@ def _batch(data):
     return {"u": u, "i": i, "j": j, "mask": (np.arange(BATCH) < 40).astype(np.float32)}
 
 
-@pytest.mark.parametrize("arm", ["ell", "dense"])
+@pytest.mark.parametrize("arm", ["ell", "edgelist", "dense"])
 def test_one_step_matches_jax(monkeypatch, tiny_graph_dataset, arm):
     jm, tm = _models(monkeypatch, tiny_graph_dataset, arm)
     batch = _batch(tm.data)
@@ -101,7 +105,7 @@ def test_one_step_matches_jax(monkeypatch, tiny_graph_dataset, arm):
         np.testing.assert_allclose(new[big], np.asarray(jp[k])[big], rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("arm", ["ell", "dense"])
+@pytest.mark.parametrize("arm", ["ell", "edgelist", "dense"])
 def test_compute_embeddings_match_jax(monkeypatch, tiny_graph_dataset, arm):
     jm, tm = _models(monkeypatch, tiny_graph_dataset, arm)
     ju, ji = jm.compute_embeddings(jm.params)

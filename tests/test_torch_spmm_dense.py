@@ -187,7 +187,9 @@ def test_norm_adj_from_scipy_and_lightgcn_match_jax(monkeypatch):
 
 def test_norm_adj_from_scipy_refuses_instead_of_switching_layout(monkeypatch):
     """Where the dense block cannot serve, both packages take the ELL
-    layout; the layouts the port lacks raise instead of being replaced."""
+    layout, or with ``SELFREC_TPU_ELL=0`` the edge-list NormAdj (the same
+    arrays as JAX's, tests/test_torch_normadj.py); a layout the port lacks
+    raises instead of being replaced."""
     monkeypatch.setenv("SELFREC_TPU_DENSE", "1")
     mat = _laplacian().tolil()
     mat[0, 1] = 0.5  # a user-user entry: not bipartite
@@ -197,8 +199,14 @@ def test_norm_adj_from_scipy_refuses_instead_of_switching_layout(monkeypatch):
     monkeypatch.setenv("SELFREC_TPU_DENSE_BUDGET_GB", "0.000001")
     assert isinstance(t_graph.norm_adj_from_scipy(_laplacian(), NU, device="cpu"), EllAdj)
     monkeypatch.setenv("SELFREC_TPU_ELL", "0")
-    with pytest.raises(NotImplementedError, match="ELL remainders"):
-        t_graph.norm_adj_from_scipy(_laplacian(), NU, device="cpu")
+    edge_list = t_graph.norm_adj_from_scipy(_laplacian(), NU, device="cpu")
+    assert isinstance(edge_list, t_graph.NormAdj)
+    assert type(jax_graph.norm_adj_from_scipy(_laplacian(), n_users=NU)).__name__ == "NormAdj"
+    x = np.random.default_rng(5).normal(size=(NU + NI, 16)).astype(np.float32)
+    np.testing.assert_allclose(
+        t_graph.spmm(edge_list, torch.from_numpy(x)).numpy(),
+        np.asarray(jax_graph.spmm(jax_graph.norm_adj_from_scipy(_laplacian(), n_users=NU),
+                                  jnp.asarray(x))), rtol=1e-6, atol=1e-7)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_graph.spmm(object(), torch.zeros(1, 1))
 

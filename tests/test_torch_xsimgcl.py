@@ -48,9 +48,12 @@ def _conf_dict():
 
 def set_mode(monkeypatch, mode):
     """The layout and matmul mode of both packages: the dense block in bf16
-    or int8 (JAX's Pallas kernel in interpret mode), or the ELL layout."""
-    if mode == "ell":
+    or int8 (JAX's Pallas kernel in interpret mode), the ELL layout, or the
+    edge-list NormAdj (``edgelist``: ``SELFREC_TPU_ELL=0``)."""
+    if mode in ("ell", "edgelist"):
         monkeypatch.setenv("SELFREC_TPU_DENSE", "0")
+        if mode == "edgelist":
+            monkeypatch.setenv("SELFREC_TPU_ELL", "0")
         return
     monkeypatch.setenv("SELFREC_TPU_DENSE", "1")
     monkeypatch.setenv("SELFREC_TPU_DENSE_DTYPE", mode)
