@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds kernels K1 (csrc/dense_dual.cu) and K2 (csrc/ell_gather.cu) from the
-checkout, one nvcc each, started together. Every model runs on the
-yelp2018-scale synthetic graph (31,667 users, 38,048 items, 1,428,306
-training edges) at D = 64 and batch 2048, with random weights from a seed.
+checkout, one nvcc each, started together. Every model but the social ones
+runs on the yelp2018-scale synthetic graph (31,667 users, 38,048 items,
+1,428,306 training edges) at D = 64 and batch 2048, with random weights
+from a seed.
 
 Prints each kernel's registers, shared memory and spills from
 ``nvcc -Xptxas -v``.
@@ -121,6 +122,35 @@ UserKNN/ItemKNN, which rank through the scatter-mask path:
 26. UserKNN and ItemKNN at bench.py:808-855 (topK 50, shrinkage 100): the
     similarity build twice and the eval (rec list through the scatter-mask
     plan), with no K1 or K2 launch.
+
+MHCN and SEPT (bench.py:353-464) on douban-book-scale synthetic data
+(13,024 users, 22,345 items, 712,881 training edges, 169,150 trust
+relations, 155,341 distinct pairs; quarter douban 3,256 × 5,586):
+27. MHCN (n_layer 2, ss_rate 0.01) under SELFREC_TPU_DENSE=auto: the
+    motifs built on the card (timed twice), 512 rows equal to the scipy
+    route exactly; the three U × U channels, R and Rᵀ as bf16 DenseMat; 20
+    steps and one eval with no K1 or K2 launch (five more steps under the
+    profiler); DenseMat's GEMM timed alone at each shape and its share of
+    the step.
+28. MHCN's ELL arm at quarter douban (SELFREC_TPU_DENSE=0): K2 against its
+    plain version on every layout the path runs: H_s, H_j and H_p forward
+    and backward, R and R's transpose layout; 10 steps, 26 K2 launches a
+    step (13 products forward, 13 backward); one eval, 10.
+29. SEPT (n_layer 2, ss_rate 0.005, drop_rate 0.3, ins_cnt 10, max.epoch 9)
+    on the dense int8x8 block, social views as DenseMat: K1 int8 against
+    its plain version (exactly) on the 13,024 × 22,345 block at D 64; 10
+    warm steps (4 K1 int8 launches a step), the joint phase entered through
+    the model's ``enter_phase``, 20 joint steps (8 a step; the epoch's
+    refactored view timed as epoch_setup; five more under the profiler);
+    K1 int8 against its plain version on that refactored view; one eval
+    (2).
+30. SEPT's ELL arm, joint phase: K2 against its plain version on the union
+    template and the bipartite template at P = 2; 10 steps, 8 K2 launches a
+    step.
+31. Small graph (600 × 900, 3,000 relations): MHCN on DenseMat in f32 and
+    bf16 (fed permutations) and SEPT's joint phase on the dense arm (f32 and
+    int8x8) and the ELL arm, on the card against the CPU: embeddings, one
+    loss and (but for int8x8) its grads.
 
 Every path sets the launch counts to 0 just before it and reads them just
 after; each phase's knobs are set around it and restored. Prints the kernel table as one JSON line, the card's name and power
@@ -264,7 +294,7 @@ def k1_case(tag, b, bt, d, gen):
     bms, bound_by = bound_ms(u * i + (u + i) * d + 4 * (u + i) * d, 4.0 * u * i * d,
                              INT8_OPS_PER_S)
     k_ms = (kernel_only_ms(lambda: dense_dual.dual_matmul(b, xu, xi, bt), "dual_s8_kernel")
-            if tag == "yelp" else None)
+            if tag in ("yelp", "douban SEPT") else None)
     row = {"shape": [u, i, d], "tag": tag, "match": "exact", "max_abs_err": err,
            "ms": ms, "ms_back_to_back": ms_b2b, "kernel_only_ms": k_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by}
@@ -929,7 +959,7 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, s
     finite losses and the launch count (exactly ``per_step`` a step, 0
     included, or at least one). ``side`` (a counter and its launches a
     step) is a second count of the same run, checked exactly too (K1 float's
-    operand pass). Returns the launches."""
+    operand pass). Returns the launches and the ms/step of steps 2..m."""
     import torch
 
     counters = counter if isinstance(counter, tuple) else (counter,)
@@ -952,6 +982,7 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, s
     torch.cuda.synchronize()
     t2 = time.time()
     launches = sum(c.launches for c in counters)
+    step_ms = 1e3 * (t2 - t1) / (m - 1)
     losses = torch.cat([first, rest]).cpu()
     if not bool(torch.isfinite(losses).all()):
         raise RuntimeError(f"{tag} train: non-finite losses {losses.tolist()}")
@@ -964,7 +995,7 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, s
     log(f"[train {tag}] {m} batches x {model.batch_size}: loss {float(losses[0]):.6f} -> "
         f"{float(losses[-1]):.6f}, {t2 - t0:.3f} s, "
         f"{m * model.batch_size / (t2 - t0):.1f} examples/s (first step "
-        f"{1e3 * (t1 - t0):.1f} ms; steps 2..{m}: {1e3 * (t2 - t1) / (m - 1):.2f} "
+        f"{1e3 * (t1 - t0):.1f} ms; steps 2..{m}: {step_ms:.2f} "
         f"ms/step, {(m - 1) * model.batch_size / (t2 - t1):.1f} examples/s), "
         f"launches {launches}{'' if side is None else f' (side {side[0].launches})'}; "
         f"epoch_setup {setup_ms:.1f} ms")
@@ -972,7 +1003,7 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, s
         n = profile_steps
         profile_window(f"train {tag}", lambda: model.train_batches(
             users[m:m + n], items[m:m + n], masks[m:m + n]), n)
-    return launches
+    return launches, step_ms
 
 
 def eval_path(tag, model, counter, profile=False, expect=None, width=64):
@@ -1261,6 +1292,394 @@ def yelp_model(cls, name, extra, data, dense):
     return model
 
 
+SOCIAL_SEED = 1237           # bench.py:118-130, 381-423
+MHCN_CONF = {"n_layer": 2, "ss_rate": 0.01}                                    # bench.py:353-378
+SEPT_CONF = {"n_layer": 2, "ss_rate": 0.005, "drop_rate": 0.3, "ins_cnt": 10}  # bench.py:426-464
+
+
+def douban_data(div=1):
+    """bench.py's social data: douban-book marginals (13,024 users, 22,347
+    items, 792,062 interactions, 169,150 trust relations), divided by
+    ``div`` (4: bench.py's quarter douban). Returns (train, test, social)."""
+    from selfrec_tpu_torch.utils import synth
+
+    train, test = synth.synth_graph_triples(
+        synth.DOUBAN_USERS // div, synth.DOUBAN_ITEMS // div,
+        synth.DOUBAN_INTERACTIONS // div, seed=SOCIAL_SEED)
+    social = synth.synth_social_triples(n_users=synth.DOUBAN_USERS // div,
+                                        n_relations=synth.DOUBAN_RELATIONS // div)
+    return train, test, social
+
+
+def social_model(cls, name, extra, data, **top):
+    """A social model on the card built from ``data`` (train, test, social),
+    with the layout knobs as the caller set them."""
+    import torch
+
+    train, test, social = data
+    t0 = time.time()
+    model = cls(graph_conf(name, extra, **{"social.data": "<synthetic>", **top}), train, test,
+                device="cuda", **{"social.data": social})
+    model.build()
+    torch.cuda.synchronize()
+    adjs = getattr(model, "H", None) or [model.adj, model._social_d1 or model._social_template]
+    log(f"[setup] {name}: {adjs!r}, U={model.data.user_num} I={model.data.item_num}, "
+        f"{model.data.n_edges} edges, {model.social_data.size()[1]} relations, "
+        f"{time.time() - t0:.1f} s")
+    return model
+
+
+def mhcn_rows_scipy(social_mat, interaction_mat, rows):
+    """Rows ``rows`` of the scipy route's [H_s, H_j, H_p]
+    (motifs.mhcn_hypergraphs) by the same sparse algebra restricted to
+    them: row r of (X·Y)⊙Z is (X[r]·Y)⊙Z[r], and row r of its transpose is
+    column r, (X·Y[:, r])⊙Z[:, r]. The full route takes about 30 s of host
+    time at douban scale; 512 rows take about 1 s."""
+    from selfrec_tpu_torch.data import motifs
+
+    S = social_mat.tocsr()
+    Y = interaction_mat.tocsr()
+    B = S.multiply(S.T).tocsr()
+    U = (S - B).tocsr()
+    mats = {"B": B, "U": U, "Ut": U.T.tocsr()}
+    cols = {k: v.tocsc() for k, v in mats.items()}
+
+    def term(x, y, z):
+        return ((mats[x][rows].dot(mats[y])).multiply(mats[z][rows]),
+                (mats[x].dot(cols[y][:, rows])).multiply(cols[z][:, rows]).T)
+
+    def with_transpose(*terms):  # C + C.T
+        parts = [term(*t) for t in terms]
+        return sum(p[0] for p in parts) + sum(p[1] for p in parts)
+
+    def alone(*terms):
+        return sum(term(*t)[0] for t in terms)
+
+    a = [with_transpose(("U", "U", "Ut")),
+         with_transpose(("B", "U", "Ut"), ("U", "B", "Ut"), ("U", "U", "B")),
+         with_transpose(("B", "B", "U"), ("B", "U", "B"), ("U", "B", "B")),
+         alone(("B", "B", "B")),
+         with_transpose(("U", "U", "U"), ("U", "Ut", "U"), ("Ut", "U", "U")),
+         alone(("U", "B", "U"), ("B", "Ut", "Ut"), ("Ut", "U", "B")),
+         alone(("Ut", "B", "Ut"), ("B", "U", "U"), ("U", "Ut", "B"))]
+    yyt = Y[rows].dot(Y.T)
+    a8 = yyt.multiply(B[rows])
+    a9 = yyt.multiply(U[rows]) + yyt.multiply(mats["Ut"][rows])  # (YYᵀ⊙U)ᵀ = YYᵀ⊙Uᵀ
+    a10 = yyt - a8 - a9
+    return [motifs._row_normalize(sum(a)), motifs._row_normalize(a8 + a9),
+            motifs._row_normalize(a10.multiply(a10 > 3))]
+
+
+def motif_phase(model, n_rows=512):
+    """The device motif build on the card (timed twice: the first pays
+    cuBLAS's set-up) against the scipy route on ``n_rows`` random rows:
+    equal element for element (integer motif counts are exact in f32)."""
+    import numpy as np
+    import torch
+
+    from selfrec_tpu_torch.data import motifs
+
+    social = model.social_data.get_social_mat()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        h = motifs.mhcn_hypergraphs_device(social, model.data.interaction_mat, "cuda")
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.time() - t0))
+    rows = np.sort(np.random.default_rng(0).choice(model.data.user_num, n_rows, replace=False))
+    t0 = time.time()
+    want = mhcn_rows_scipy(social, model.data.interaction_mat, rows)
+    host_ms = 1e3 * (time.time() - t0)
+    nnz = []
+    for name, got, w in zip(("H_s", "H_j", "H_p"), h, want):
+        g = got[torch.as_tensor(rows, device="cuda")].cpu().numpy()
+        if not np.array_equal(g, w.toarray()):
+            raise RuntimeError(f"MHCN motifs: {name} on the card differs from the scipy route in "
+                               f"{int((g != w.toarray()).sum())} of {g.size} values")
+        nnz.append(int((got != 0).sum()))
+    del h
+    torch.cuda.empty_cache()
+    u = model.data.user_num
+    ops = 2.0 * (8 * u ** 3 + u * u * model.data.item_num)
+    log(f"[motifs MHCN] device build U={u}: {times[0]:.1f} ms, again {times[1]:.1f} ms "
+        f"(8 U×U×U and one U×I×U f32 products, {ops / 1e12:.1f} TFLOP: "
+        f"{ops / times[1] / 1e9:.1f} TFLOP/s); {n_rows} rows equal the scipy route "
+        f"exactly (scipy on those rows {host_ms:.0f} ms); nonzeros H_s {nnz[0]}, "
+        f"H_j {nnz[1]}, H_p {nnz[2]}")
+    return times
+
+
+def densemat_gemm_ms(model, step_ms):
+    """DenseMat's product alone at MHCN's shapes, forward and forward plus
+    backward: one call between CUDA events (median; host time included)
+    and its device time under torch.profiler (every kernel of the call: the
+    cast, the cotangent's split and the GEMMs). Weighed by the calls of one
+    step (per layer three H products, Rᵀ and R, plus three H products in
+    the self-supervision, each forward and backward) against ``step_ms``.
+    The design: cuBLAS with f32 output (``torch.mm(..., out_dtype=
+    float32)``), reduced-precision reductions off; the backward's f32
+    cotangent as three bf16 pieces, one GEMM of width 3D; the block at a
+    16-byte row pitch."""
+    import torch
+
+    from selfrec_tpu_torch.ops.spmm_dense import dense_mat_spmm
+
+    d = model.emb_size
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = {}
+    for tag, adj, calls in (("H", model.H[0], 3 * model.n_layers + 3),
+                            ("R", model.R, model.n_layers), ("Rt", model.Rt, model.n_layers)):
+        x = torch.randn((adj.shape[1], d), generator=gen, device="cuda", requires_grad=True)
+        g = torch.randn((adj.shape[0], d), generator=gen, device="cuda")
+
+        def fwd():
+            return dense_mat_spmm(adj, x.detach())
+
+        def both():
+            dense_mat_spmm(adj, x).backward(g)
+
+        m, k = adj.shape
+        rows[tag] = {"shape": [m, k, d], "calls_per_step": calls,
+                     "fwd_ms": cuda_ms(fwd, reps=10), "fwd_bwd_ms": cuda_ms(both, reps=10),
+                     "fwd_device_ms": kernel_only_ms(fwd, ""),
+                     "fwd_bwd_device_ms": kernel_only_ms(both, ""),
+                     "fwd_bound_ms": bound_ms(2 * m * k + 4 * k * d + 4 * m * d,
+                                              2.0 * m * k * d, BF16_OPS_PER_S)[0]}
+    per_step = sum(r["calls_per_step"] * (r["fwd_bwd_device_ms"] or float("nan"))
+                   for r in rows.values())
+    log(f"[densemat MHCN] {model.H[0]!r}: cuBLAS bf16 GEMM with f32 output "
+        f"(torch.mm out_dtype), backward one GEMM of width 3D over the cotangent's bf16 "
+        f"pieces, rows at a 16-byte pitch; " + "; ".join(
+            f"{t} {r['shape']} x{r['calls_per_step']}: fwd {r['fwd_ms']:.4f} ms (device "
+            f"{r['fwd_device_ms']}, bound {r['fwd_bound_ms']:.4f}), fwd+bwd "
+            f"{r['fwd_bwd_ms']:.4f} (device {r['fwd_bwd_device_ms']})"
+            for t, r in rows.items())
+        + f"; device {per_step:.3f} ms a step, {100 * per_step / step_ms:.1f}% of "
+        f"{step_ms:.2f} ms/step")
+    return per_step
+
+
+def social_pair(cls, conf, data):
+    """The same social model on the CPU and on the card, on a small graph,
+    with the CPU's weights on both."""
+    train, test, social = data
+    models = {dev: cls(conf, train, test, device=dev, **{"social.data": social})
+              for dev in ("cpu", "cuda")}
+    for m in models.values():
+        m.build()
+    models["cuda"].set_params(models["cpu"].params)
+    return models
+
+
+def social_reference_phase():
+    """Small graph (600 × 900, 3,000 relations): MHCN on DenseMat in f32 and
+    in bf16 with the CPU's permutations fed to both, and SEPT's joint phase
+    on the dense arm (f32 and int8x8) and on the ELL arm with the same keep
+    mask, on the card against the CPU: embeddings, one batch loss and its
+    grads, within the CPU tests' tolerances (tests/test_torch_mhcn.py,
+    test_torch_sept.py): f32 embeddings rtol 1e-5 / atol 1e-6, loss rtol
+    1e-5, grads rtol 1e-4 / atol 1e-6; bf16 within 2^-8 of each tensor's
+    largest magnitude, loss rtol 1e-4. The int8x8 case compares the
+    embeddings and the loss as the other int8 reference phases do
+    (``check_int8_alike``): its backward quantizes the cotangent, so a
+    last-bit difference upstream may move a gradient by one quantum."""
+    import torch
+
+    from selfrec_tpu_torch.models.graph.mhcn import MHCN
+    from selfrec_tpu_torch.models.graph.sept import SEPT
+    from selfrec_tpu_torch.utils.synth import synth_graph_mapped, synth_social_triples
+
+    data = (*synth_graph_mapped(600, 900, 12000, seed=5),
+            synth_social_triples(n_users=600, n_relations=3000, seed=5))
+    cases = (("MHCN DenseMat f32", MHCN, MHCN_CONF, {"SELFREC_TPU_DENSE": "1",
+                                                     "SELFREC_TPU_DENSE_DTYPE": "float32"}),
+             ("MHCN DenseMat bf16", MHCN, MHCN_CONF, {"SELFREC_TPU_DENSE": "1",
+                                                      "SELFREC_TPU_DENSE_DTYPE": None}),
+             ("SEPT dense f32", SEPT, SEPT_CONF, {"SELFREC_TPU_DENSE": "1",
+                                                  "SELFREC_TPU_DENSE_DTYPE": "float32"}),
+             ("SEPT dense int8x8", SEPT, SEPT_CONF, {"SELFREC_TPU_DENSE": "1",
+                                                     "SELFREC_TPU_DENSE_DTYPE": "int8"}),
+             ("SEPT ELL", SEPT, SEPT_CONF, {"SELFREC_TPU_DENSE": "0"}))
+    for tag, cls, extra, env in cases:
+        int8 = tag.endswith("int8x8")
+        with knobs(**env):
+            conf = graph_conf(cls.__name__, extra, **{"batch.size": 256, "max.epoch": 9,
+                                                      "social.data": "<synthetic>"})
+            models = social_pair(cls, conf, data)
+            batch = small_batch(models["cpu"].data, torch.Generator().manual_seed(11))
+            kw = {}
+            if cls is MHCN:
+                perms = models["cpu"].ss_permutations(torch.Generator().manual_seed(12))
+            out = {}
+            for dev, m in models.items():
+                if cls is MHCN:
+                    kw = {"perms": [tuple(p.to(dev) for p in c) for c in perms]}
+                else:
+                    m.enter_phase(4)
+                    m.aux = m.epoch_setup(4)
+                with torch.no_grad():
+                    ue, ie = m.embeddings()
+                params = {k: v.detach().clone().requires_grad_(not int8)
+                          for k, v in m.params.items()}
+                with torch.set_grad_enabled(not int8):
+                    loss = m.batch_loss(params, dict({k: v.to(dev) for k, v in batch.items()},
+                                                     aux=m.aux), **kw)
+                if not int8:
+                    loss.backward()
+                out[dev] = {"user_emb": ue.cpu(), "item_emb": ie.cpu(),
+                            "loss": loss.detach().cpu(),
+                            **({} if int8 else {f"grad {k}": v.grad.cpu()
+                                                for k, v in params.items()})}
+        if int8:
+            check_int8_alike(f"{tag} reference phase", {
+                dev: (o["user_emb"], o["item_emb"], o["loss"]) for dev, o in out.items()})
+        for what, a in () if int8 else out["cuda"].items():
+            b = out["cpu"][what]
+            if tag.endswith("bf16"):
+                rtol, atol = (1e-4, 0.0) if what == "loss" else (0.0, 2 ** -8 * float(
+                    b.abs().max()))
+            else:
+                rtol, atol = {"user_emb": (1e-5, 1e-6), "item_emb": (1e-5, 1e-6),
+                              "loss": (1e-5, 0.0)}.get(what, (1e-4, 1e-6))
+            check_close(f"{tag} reference phase", what, a, b, rtol, atol)
+        worst = max(float((out["cuda"][k] - out["cpu"][k]).abs().max()) for k in out["cpu"])
+        log(f"[reference] {tag} small graph U={models['cpu'].data.user_num}: card agrees with "
+            f"the CPU (largest difference {worst:.3g}), loss {float(out['cuda']['loss']):.6f} "
+            f"vs {float(out['cpu']['loss']):.6f}")
+
+
+def mhcn_k2_rows(model):
+    """K2's rows on every layout of MHCN's ELL arm (quarter douban), D 64:
+    each channel H_s, H_j, H_p forward and backward (the backward gathers
+    over the transpose: the channels are row-normalized, not symmetric;
+    H_p's rows are all long, about 1,150 slots each), R (U rows gathering
+    items) and its backward layout (I rows gathering users)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    nu, ni = model.data.user_num, model.data.item_num
+    rows = []
+    for name, adj in (("H_s", model.H[0]), ("H_j", model.H[1]), ("H_p", model.H[2])):
+        for way, layout, w in (("", adj.fwd, adj.w_fwd), (" bwd", adj.bwd, adj.w_bwd)):
+            rows.append(k2_case(f"MHCN {name}{way}", layout, w[None],
+                                torch.randn((nu, 64), generator=gen, device="cuda")))
+    r = model.R
+    return rows + [k2_case("MHCN R", r.fwd, r.w_fwd[None],
+                           torch.randn((ni, 64), generator=gen, device="cuda")),
+                   k2_case("MHCN R bwd", r.bwd, r.w_bwd[None],
+                           torch.randn((nu, 64), generator=gen, device="cuda"))]
+
+
+def sept_k2_rows(model):
+    """K2's rows on SEPT's ELL layouts at P = 2, D 64 a pass: the social
+    union template (a zero weight where a view lacks a union edge) and the
+    bipartite template with the rec and the epoch's dropped weights."""
+    import torch
+
+    from selfrec_tpu_torch.ops.spmm_ell import ell_weights
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    nu, ni = model.data.user_num, model.data.item_num
+    union = model._social_template.fwd
+    bip = model._view_template.fwd
+    aug_w = model.epoch_setup(4)["aug_w"]
+    return [k2_case("SEPT union P2", union, ell_weights(union, model._social_w_stack),
+                    torch.randn((nu, 128), generator=gen, device="cuda")),
+            k2_case("SEPT bipartite P2", bip,
+                    ell_weights(bip, torch.stack([model._w_rec, aug_w])),
+                    torch.randn((nu + ni, 128), generator=gen, device="cuda"))]
+
+
+def social_phases(k1_paths, k1_rows, k1_float, k2_paths, k2_rows):
+    """MHCN and SEPT (bench.py:353-464) on douban-book-scale synthetic data:
+    MHCN on DenseMat (auto) and on ELL (quarter douban), SEPT's dense int8x8
+    arm (warm and joint) and ELL arm (joint), then the small-graph reference
+    phase. Adds each path's launches to ``k1_paths`` / ``k2_paths``, K1
+    int8's rows on SEPT's douban block and its dropped view to ``k1_rows``
+    and K2's rows on the social layouts to ``k2_rows``."""
+    import torch
+
+    from selfrec_tpu_torch.models.graph.mhcn import MHCN
+    from selfrec_tpu_torch.models.graph.sept import SEPT
+    from selfrec_tpu_torch.ops import dense_dual, ell_gather
+    from selfrec_tpu_torch.ops.spmm_dense import DenseAdj, DenseMat
+
+    t0 = time.time()
+    douban = douban_data()
+    log(f"[setup] douban-scale social data in {time.time() - t0:.1f} s")
+    social_kernels = (dense_dual.dual_matmul, k1_float, ell_gather.ell_gather_sum)
+    # MHCN under auto: the three U x U channels, R and R^T as DenseMat, the
+    # motifs built on the card; no kernel of the port runs
+    with knobs(SELFREC_TPU_DENSE="auto"):
+        model = social_model(MHCN, "MHCN", MHCN_CONF, douban)
+    if not all(isinstance(a, DenseMat) for a in model.H + [model.R, model.Rt]):
+        raise RuntimeError("MHCN under auto: not every adjacency is a DenseMat")
+    motif_phase(model)
+    k1_paths["mhcn_dense_train"], step_ms = train_path(
+        "MHCN DenseMat", model, social_kernels, 20, per_step=0,
+        profile_steps=N_PROFILE_STEPS)
+    densemat_gemm_ms(model, step_ms)
+    k1_paths["mhcn_dense_eval"] = eval_path("MHCN DenseMat", model, social_kernels, expect=0)
+    del model
+    torch.cuda.empty_cache()
+
+    # MHCN's ELL arm at quarter douban (bench.py:353-378): each product of a
+    # step one K2 launch forward and one backward: per layer three channels,
+    # R^T and R, plus three channels in the self-supervision
+    with knobs(SELFREC_TPU_DENSE="0"):
+        model = social_model(MHCN, "MHCN", MHCN_CONF, douban_data(4))
+    k2_rows.extend(mhcn_k2_rows(model))
+    k2_paths["mhcn_ell_train"], _ = train_path(
+        "MHCN ELL quarter douban", model, ell_gather.ell_gather_sum, N_SHORT_BATCHES,
+        per_step=2 * (5 * model.n_layers + 3))
+    k2_paths["mhcn_ell_eval"] = eval_path("MHCN ELL quarter douban", model,
+                                          ell_gather.ell_gather_sum, expect=5 * model.n_layers)
+    del model
+    torch.cuda.empty_cache()
+
+    # SEPT's dense int8x8 arm: the rec chain (and in the joint phase the
+    # epoch's dropped view) on K1 int8, each hop forward and backward; the
+    # social views as DenseMat
+    with knobs(SELFREC_TPU_DENSE="1"):
+        model = social_model(SEPT, "SEPT", SEPT_CONF, douban, **{"max.epoch": 9})
+    if not (isinstance(model.adj, DenseAdj) and model.adj.mm_dtype == torch.int8
+            and isinstance(model._social_d1, DenseMat)):
+        raise RuntimeError(f"SEPT dense: {model.adj!r}, {model._social_d1!r}")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    k1_rows.append(k1_case("douban SEPT", model.adj.a_ui, model.adj.a_iu, 64, gen))
+    model.enter_phase(0)
+    k1_paths["sept_warm_train"], _ = train_path(
+        "SEPT int8x8 warm", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
+        per_step=2 * model.n_layers)
+    model.enter_phase(4)  # max.epoch 9: joint from epoch 4, a fresh Adam
+    if not model._joint_phase:
+        raise RuntimeError("SEPT: enter_phase(4) left the warm phase on")
+    k1_paths["sept_joint_train"], _ = train_path(
+        "SEPT int8x8 joint", model, dense_dual.dual_matmul, 20, per_step=4 * model.n_layers,
+        profile_steps=N_PROFILE_STEPS)
+    view = model._aug_view  # epoch_setup's refactored dropped view
+    k1_rows.append(k1_case("douban SEPT dropped view", view.a_ui, view.a_iu, 64, gen))
+    del view
+    k1_paths["sept_eval"] = eval_path("SEPT int8x8", model, dense_dual.dual_matmul)
+    del model
+    torch.cuda.empty_cache()
+
+    # SEPT's ELL arm, joint phase: rec + dropped view and social + sharing
+    # view as two packed chains at P = 2, each hop one K2 launch forward and
+    # one backward
+    with knobs(SELFREC_TPU_DENSE="0"):
+        model = social_model(SEPT, "SEPT", SEPT_CONF, douban, **{"max.epoch": 9})
+    model.enter_phase(4)
+    k2_rows.extend(sept_k2_rows(model))
+    k2_paths["sept_ell_joint_train"], _ = train_path(
+        "SEPT ELL joint", model, ell_gather.ell_gather_sum, N_SHORT_BATCHES,
+        per_step=4 * model.n_layers)
+    del model, douban
+    torch.cuda.empty_cache()
+    social_reference_phase()
+
+
 def main():
     import torch
 
@@ -1330,8 +1749,9 @@ def main():
     del small, ragged, yelp
     torch.cuda.empty_cache()
     simgcl_reference_phase()
-    k1_paths = {"simgcl_train": train_path("SimGCL int8x8", model, dense_dual.dual_matmul,
-                                           N_TRAIN_BATCHES, profile_steps=N_PROFILE_STEPS)}
+    k1_paths = {}
+    k1_paths["simgcl_train"], _ = train_path("SimGCL int8x8", model, dense_dual.dual_matmul,
+                                             N_TRAIN_BATCHES, profile_steps=N_PROFILE_STEPS)
     k1_paths["simgcl_eval"] = eval_path("SimGCL int8x8", model, dense_dual.dual_matmul,
                                         profile=True)
     del model
@@ -1343,14 +1763,15 @@ def main():
     k2_rows = k2_phase(model)
     torch.cuda.empty_cache()
     sgl_reference_phase()
-    k2_paths = {"sgl_ell_train": train_path(
+    k2_paths = {}
+    k2_paths["sgl_ell_train"], _ = train_path(
         "SGL ELL", model, ell_gather.ell_gather_sum, N_TRAIN_BATCHES,
-        per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)}
+        per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
     k2_paths["sgl_ell_eval"] = eval_path("SGL ELL", model, ell_gather.ell_gather_sum)
     del model
     torch.cuda.empty_cache()
     model = yelp_model(LightGCN, "LightGCN", {"n_layer": 3}, data, dense=False)
-    k2_paths["lightgcn_ell_train"] = train_path(
+    k2_paths["lightgcn_ell_train"], _ = train_path(
         "LightGCN ELL", model, ell_gather.ell_gather_sum, N_SHORT_BATCHES,
         per_step=2 * model.n_layers)
     del model
@@ -1358,7 +1779,7 @@ def main():
 
     # SGL's dense int8x8 arm: three views, each hop forward and backward ------
     model = yelp_model(SGL, "SGL", SGL_CONF, data, dense=True)
-    k1_paths["sgl_dense_train"] = train_path(
+    k1_paths["sgl_dense_train"], _ = train_path(
         "SGL dense int8x8", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
         per_step=3 * 2 * model.n_layers)
     del model
@@ -1368,21 +1789,21 @@ def main():
     # K1 launch forward and one backward -----------------------------------
     xsimgcl_reference_phase()
     model = yelp_model(XSimGCL, "XSimGCL", XSIMGCL, data, dense=True)
-    k1_paths["xsimgcl_train"] = train_path(
+    k1_paths["xsimgcl_train"], _ = train_path(
         "XSimGCL int8x8", model, dense_dual.dual_matmul, N_TRAIN_BATCHES,
         per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
     k1_paths["xsimgcl_eval"] = eval_path("XSimGCL int8x8", model, dense_dual.dual_matmul)
     del model
     torch.cuda.empty_cache()
     model = yelp_model(DirectAU, "DirectAU", DIRECTAU, data, dense=True)
-    k1_paths["directau_train"] = train_path(
+    k1_paths["directau_train"], _ = train_path(
         "DirectAU int8x8", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
         per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
     k1_paths["directau_eval"] = eval_path("DirectAU int8x8", model, dense_dual.dual_matmul)
     del model
     torch.cuda.empty_cache()
     model = yelp_model(MixGCF, "MixGCF", MIXGCF, data, dense=True)
-    k1_paths["mixgcf_train"] = train_path(
+    k1_paths["mixgcf_train"], _ = train_path(
         "MixGCF int8x8", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
         per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
     del model
@@ -1391,7 +1812,7 @@ def main():
     # MF: no adjacency, so no K1 or K2 launch ------------------------------
     model = yelp_model(MF, "MF", {}, data, dense=True)
     no_kernel = (dense_dual.dual_matmul, ell_gather.ell_gather_sum)
-    k1_paths["mf_train"] = train_path("MF", model, no_kernel, N_SHORT_BATCHES, per_step=0,
+    k1_paths["mf_train"], _ = train_path("MF", model, no_kernel, N_SHORT_BATCHES, per_step=0,
                                       profile_steps=N_PROFILE_STEPS)
     k1_paths["mf_eval"] = eval_path("MF", model, no_kernel, expect=0)
     del model
@@ -1405,7 +1826,7 @@ def main():
     dense_float_reference_phase(k1_float)
     with pinned_bf16():
         model = yelp_model(SelfCF, "SelfCF", SELFCF, data, dense=True)
-    k1f_paths["selfcf_train"] = train_path(
+    k1f_paths["selfcf_train"], _ = train_path(
         "SelfCF bf16", model, k1_float, N_TRAIN_BATCHES, per_step=2 * model.n_layers,
         profile_steps=N_PROFILE_STEPS,
         side=(dense_dual.float_operand, 2 * 2 * model.n_layers))  # two operands a launch
@@ -1414,7 +1835,7 @@ def main():
     torch.cuda.empty_cache()
     with pinned_bf16():
         model = yelp_model(BUIR, "BUIR", BUIR_CONF, data, dense=True)
-    k1f_paths["buir_train"] = train_path(
+    k1f_paths["buir_train"], _ = train_path(
         "BUIR bf16", model, k1_float, N_SHORT_BATCHES, per_step=3 * model.n_layers,
         profile_steps=N_PROFILE_STEPS, side=(dense_dual.float_operand, 2 * 3 * model.n_layers))
     k1f_paths["buir_eval"] = eval_path("BUIR bf16", model, k1_float, width=128)
@@ -1422,7 +1843,7 @@ def main():
     torch.cuda.empty_cache()
     model = yelp_model(BUIR, "BUIR", BUIR_CONF, data, dense=False)
     k2_rows.append(buir_k2_row(model))
-    k2_paths["buir_ell_train"] = train_path(
+    k2_paths["buir_ell_train"], _ = train_path(
         "BUIR ELL", model, ell_gather.ell_gather_sum, N_SHORT_BATCHES,
         per_step=2 * model.n_layers)
     del model
@@ -1430,11 +1851,11 @@ def main():
 
     # NCL int8x8: both phases and the E-step between them ---------------------
     model = yelp_model(NCL, "NCL", NCL_CONF, data, dense=True)
-    k1_paths["ncl_warm_train"] = train_path(
+    k1_paths["ncl_warm_train"], _ = train_path(
         "NCL int8x8 warm-up", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
         per_step=2 * model.n_layers)
     ncl_estep(model)
-    k1_paths["ncl_proto_train"] = train_path(
+    k1_paths["ncl_proto_train"], _ = train_path(
         "NCL int8x8 prototype phase", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
         per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
     k1_paths["ncl_eval"] = eval_path("NCL int8x8", model, dense_dual.dual_matmul)
@@ -1444,7 +1865,7 @@ def main():
     # SSL4Rec: two towers, no adjacency, so no K1 or K2 launch ----------------
     model = yelp_model(SSL4Rec, "SSL4Rec", SSL4REC, data, dense=True)
     no_kernel = (dense_dual.dual_matmul, k1_float, ell_gather.ell_gather_sum)
-    k1_paths["ssl4rec_train"] = train_path("SSL4Rec", model, no_kernel, N_SHORT_BATCHES,
+    k1_paths["ssl4rec_train"], _ = train_path("SSL4Rec", model, no_kernel, N_SHORT_BATCHES,
                                            per_step=0, profile_steps=N_PROFILE_STEPS)
     k1_paths["ssl4rec_eval"] = eval_path("SSL4Rec", model, no_kernel, expect=0, width=128)
     del model
@@ -1457,7 +1878,7 @@ def main():
         model = yelp_model(SimGCL, "SimGCL", SIMGCL, data, dense=True)
     sampler_gates(model)
     csr_on_card_gate(model)
-    k1_paths["simgcl_csr_train"] = train_path(
+    k1_paths["simgcl_csr_train"], _ = train_path(
         "SimGCL int8x8 CSR sampler", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
         per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
     with knobs(SELFREC_TPU_EVAL_MASK="scatter"):
@@ -1478,7 +1899,7 @@ def main():
                 is not None:
             raise RuntimeError(f"over-budget phase: {model.adj!r}, or a resident mask")
         log(f"[setup] LightGCN over budget under auto: {model.adj!r}, no resident mask")
-        k2_paths["lightgcn_auto_ell_train"] = train_path(
+        k2_paths["lightgcn_auto_ell_train"], _ = train_path(
             "LightGCN auto over budget (ELL, host batches)", model, ell_gather.ell_gather_sum,
             N_SHORT_BATCHES, per_step=2 * model.n_layers)
         k2_paths["lightgcn_auto_ell_eval"] = eval_path(
@@ -1491,7 +1912,7 @@ def main():
         model = yelp_model(LightGCN, "LightGCN", {"n_layer": 3}, data, dense=False)
     if not isinstance(model.adj, NormAdj):
         raise RuntimeError(f"SELFREC_TPU_ELL=0 phase: {model.adj!r}")
-    k1_paths["lightgcn_normadj_train"] = train_path(
+    k1_paths["lightgcn_normadj_train"], _ = train_path(
         "LightGCN NormAdj", model, no_kernel, N_SHORT_BATCHES, per_step=0,
         profile_steps=N_PROFILE_STEPS)
     k1_paths["lightgcn_normadj_eval"] = eval_path("LightGCN NormAdj", model, no_kernel,
@@ -1509,6 +1930,8 @@ def main():
         k1_paths[f"{cls.__name__.lower()}"] = knn_path(cls.__name__, model, no_kernel)
         del model
         torch.cuda.empty_cache()
+
+    social_phases(k1_paths, k1_rows, k1_float, k2_paths, k2_rows)
 
     k1_main = next(r for r in k1_rows if r["tag"] == "yelp" and r["shape"][2] == 192)
     k1f_main = next(r for r in k1f_rows if r["tag"] == "yelp" and r["shape"][2] == 64

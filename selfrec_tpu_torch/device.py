@@ -7,6 +7,7 @@ CPU on its own, so a run that reports a device number ran on that device.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -32,3 +33,16 @@ def disable_tf32() -> None:
     JAX package (``SELFREC_TPU_DENSE_DTYPE=float32``) need true f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Float32 matrix products in full f32 (no TF32) inside the block, the
+    caller's setting restored after: for products that must not depend on
+    whether the caller ran :func:`disable_tf32`."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)

@@ -25,8 +25,8 @@ MODEL_REGISTRY: Dict[str, Tuple[Optional[str], str, str]] = {
     "SSL4Rec": ("selfrec_tpu_torch.models.graph.ssl4rec", "SSL4Rec", "graph"),
     "UserKNN": ("selfrec_tpu_torch.models.graph.userknn", "UserKNN", "graph"),
     "ItemKNN": ("selfrec_tpu_torch.models.graph.itemknn", "ItemKNN", "graph"),
-    "MHCN": (None, "MHCN", "graph"),
-    "SEPT": (None, "SEPT", "graph"),
+    "MHCN": ("selfrec_tpu_torch.models.graph.mhcn", "MHCN", "graph"),
+    "SEPT": ("selfrec_tpu_torch.models.graph.sept", "SEPT", "graph"),
     "SASRec": (None, "SASRec", "sequential"),
     "CL4SRec": (None, "CL4SRec", "sequential"),
     "BERT4Rec": (None, "BERT4Rec", "sequential"),

@@ -4,10 +4,11 @@
 block (:mod:`selfrec_tpu_torch.ops.spmm_dense`, kernel K1), the row-split
 ELL layout (:mod:`selfrec_tpu_torch.ops.spmm_ell`, kernel K2) or the
 edge-list :class:`NormAdj` (a gather and a segment sum in plain torch, as
-the JAX package computes it in XLA). :func:`norm_adj_from_scipy` picks
-between them by the JAX package's own gates (``SELFREC_TPU_DENSE``,
-``SELFREC_TPU_ELL``). Not ported yet: ``union_ell_template``, the dense
-``DenseMat`` and the sharded layouts (ROADMAP.md §1.6, §1.8).
+the JAX package computes it in XLA), or a static dense matrix of any
+values (:class:`selfrec_tpu_torch.ops.spmm_dense.DenseMat`, a GEMM with f32
+sums). :func:`norm_adj_from_scipy` picks between them by the JAX package's
+own gates (``SELFREC_TPU_DENSE``, ``SELFREC_TPU_ELL``). Not ported yet: the
+sharded layouts (ROADMAP.md §1.8).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import numpy as np
 import torch
 
 from selfrec_tpu_torch.ops import spmm_dense
-from selfrec_tpu_torch.ops.spmm_dense import DenseAdj, dense_spmm
+from selfrec_tpu_torch.ops.spmm_dense import (DenseAdj, DenseMat, dense_mat_spmm,
+                                               dense_spmm)
 from selfrec_tpu_torch.ops.spmm_ell import (EllAdj, ell_adj_from_edges, ell_spmm,
                                             ell_spmm_packed)
 
@@ -71,9 +73,11 @@ def spmm(adj, x: torch.Tensor) -> torch.Tensor:
         return ell_spmm(adj, x)
     if isinstance(adj, NormAdj):
         return norm_adj_spmm(adj, x)
+    if isinstance(adj, DenseMat):
+        return dense_mat_spmm(adj, x)
     raise NotImplementedError(
-        f"spmm over {type(adj).__name__}: the port propagates DenseAdj, EllAdj "
-        "and NormAdj; the other layouts are queued in ROADMAP.md (§1.6, §1.8)")
+        f"spmm over {type(adj).__name__}: the port propagates DenseAdj, EllAdj, "
+        "NormAdj and DenseMat; the sharded layouts are queued in ROADMAP.md (§1.8)")
 
 
 def spmm_packed(adj, w_edge_stack: torch.Tensor, x: torch.Tensor,
@@ -211,6 +215,36 @@ def build_bipartite_ell_template(edge_users, edge_items, n_users: int,
                               device=device)
 
 
+def union_ell_template(mats, k: int = 16, device="cuda"):
+    """One ELL layout over the UNION sparsity pattern of several same-shape
+    scipy matrices, and the (P, E) per-view weight stack in the template's
+    edge order (graph.py:213-253): a view that lacks a union edge carries
+    weight 0 in that slot, so :func:`spmm_packed` runs all P propagations
+    as one K2 chain. SEPT's social and sharing views are both ``(·)⊙S +
+    I`` patterns (reference SEPT.py:33-40), so their union is barely larger
+    than either. K is 16 whatever ``SELFREC_TPU_ELL_K`` says, as in the JAX
+    package. Returns (template: EllAdj with all-ones weights, w_stack)."""
+    import scipy.sparse as sp
+
+    n_rows, n_cols = mats[0].shape
+    union = None
+    for m in mats:
+        if m.shape != (n_rows, n_cols):
+            raise ValueError(f"union_ell_template: shapes {m.shape} and "
+                             f"{(n_rows, n_cols)} differ")
+        pat = m.tocoo()
+        pat = sp.coo_matrix((np.ones(pat.nnz, np.float32), (pat.row, pat.col)),
+                            shape=m.shape)
+        union = pat if union is None else union + pat
+    union = union.tocoo()
+    rows, cols = union.row.astype(np.int32), union.col.astype(np.int32)
+    w_stack = np.stack([np.asarray(m.tocsr()[rows, cols]).ravel().astype(np.float32)
+                        for m in mats])
+    template = ell_adj_from_edges(cols, rows, np.ones(len(rows), np.float32),
+                                  n_rows=n_rows, n_cols=n_cols, k=k, device=device)
+    return template, torch.as_tensor(w_stack, device=device)
+
+
 def adj_dropout(adj, rate, keep: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
     """Per-step sparse dropout of adjacency entries (graph.py:320-352;
@@ -222,15 +256,14 @@ def adj_dropout(adj, rate, keep: Optional[torch.Tensor] = None,
     edges in their original order, both directions alike) and a NormAdj are
     reweighted with ``where(keep, w / (1 - rate), 0)``. ``keep`` (E,) bool
     over the adjacency's edge order is drawn as ``rand(E) >= rate`` from
-    ``generator`` when not given. Other layouts raise, as :func:`spmm`
-    does."""
+    ``generator`` when not given. Other layouts raise."""
     if isinstance(adj, DenseAdj):
         return adj.dropout_view(rate, keep=keep, generator=generator)
     if not isinstance(adj, (EllAdj, NormAdj)):
         raise NotImplementedError(
             f"adj_dropout over {type(adj).__name__}: the port drops edges of "
-            "DenseAdj, EllAdj and NormAdj; the other layouts are queued in "
-            "ROADMAP.md (§1.6, §1.8)")
+            "DenseAdj, EllAdj and NormAdj (no model drops a static DenseMat); the "
+            "sharded layouts are queued in ROADMAP.md (§1.8)")
     if keep is None:
         keep = torch.rand(adj.edge_w.shape, generator=generator,
                           device=adj.edge_w.device) >= rate
@@ -240,10 +273,28 @@ def adj_dropout(adj, rate, keep: Optional[torch.Tensor] = None,
     return NormAdj(adj.src, adj.dst, w, adj.n_nodes, adj.sorted_by_dst)
 
 
+def dense_general_available(m: int, n: int, device="cuda") -> bool:
+    """Whether a static (m, n) matrix takes the dense :class:`DenseMat`
+    under the gates :func:`norm_adj_from_scipy` applies with
+    ``dense_general=True`` (graph.py:355-369): ``SELFREC_TPU_DENSE`` ``0``
+    never, ``1`` whenever the block fits ``SELFREC_TPU_DENSE_BUDGET_GB`` in
+    ``_generic_dtype()``, anything else (default ``auto``) only when it
+    fits and ``device`` is CUDA."""
+    mode = os.environ.get("SELFREC_TPU_DENSE", "auto")
+    if mode == "0":
+        return False
+    return (spmm_dense.fits_dense(m, n, spmm_dense._generic_dtype())
+            and (mode == "1" or torch.device(device).type == "cuda"))
+
+
 def norm_adj_from_scipy(norm_adj, n_users: Optional[int] = None, k: int = 16,
-                        device="cuda"):
+                        device="cuda", dense_general: bool = False):
     """Device adjacency from the host scipy normalized matrix (one-time
-    setup; graph.py:372-430, without ``dense_general``).
+    setup; graph.py:372-430).
+
+    ``dense_general=True`` opts a static square or rectangular matrix of any
+    values (MHCN's motif channels and rating blocks) into the dense
+    :class:`DenseMat` when :func:`dense_general_available` allows it.
 
     With ``n_users`` given for a square unified Laplacian, the dense
     bipartite block is built when ``SELFREC_TPU_DENSE`` allows it: ``0``
@@ -256,6 +307,9 @@ def norm_adj_from_scipy(norm_adj, n_users: Optional[int] = None, k: int = 16,
     by destination (graph.py:430-438); rectangular matrices have rows as
     destinations."""
     device = torch.device(device)
+    if (dense_general and n_users is None
+            and dense_general_available(*norm_adj.shape, device=device)):
+        return spmm_dense.dense_mat_from_scipy(norm_adj, device=device)
     coo = norm_adj.tocoo()
     dense_mode = os.environ.get("SELFREC_TPU_DENSE", "auto")
     if n_users is not None and dense_mode != "0":

@@ -38,6 +38,23 @@ def bpr_loss(user_emb, pos_item_emb, neg_item_emb, mask=None):
     return _masked_mean(loss, mask)
 
 
+def l2_loss(x: torch.Tensor) -> torch.Tensor:
+    """0.5 * sum(x^2): ``tf.nn.l2_loss``, the social models' regularizer."""
+    return 0.5 * torch.sum(x * x)
+
+
+def bpr_loss_sum(user_emb, pos_item_emb, neg_item_emb, mask=None):
+    """BPR summed, not averaged, with the ``10e-8`` inside the log
+    (losses.py:215-224; reference util/loss_tf.py:4-7): the social models'
+    (MHCN, SEPT) rec loss."""
+    pos_score = torch.sum(user_emb * pos_item_emb, dim=-1)
+    neg_score = torch.sum(user_emb * neg_item_emb, dim=-1)
+    loss = -torch.log(torch.sigmoid(pos_score - neg_score) + 10e-8)
+    if mask is not None:
+        loss = loss * mask.to(loss.dtype)
+    return torch.sum(loss)
+
+
 def l2_reg_loss(reg: float, *embs, mask=None):
     """reg * sum_e ||E_e||_F / rows(E_e). Reference loss_torch.py:18-22."""
     total = 0.0

@@ -29,7 +29,12 @@ The generic (arbitrary weight) mode multiplies its value block in f32 with
 
 SGL's per-epoch dropped views stay factored through
 :meth:`DenseAdj.refactor_view`, and BUIR's per-step views through
-:meth:`DenseAdj.dropout_view`. Not ported yet: ``DenseMat`` (ROADMAP.md).
+:meth:`DenseAdj.dropout_view`.
+
+:class:`DenseMat` holds any static (M, N) matrix (MHCN's motif channels and
+R, SEPT's social views) as one value block in ``_generic_dtype()``;
+:func:`dense_mat_spmm` multiplies it with f32 sums (a library GEMM, as the
+JAX package leaves this product to XLA).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import os
 import numpy as np
 import torch
 
+from selfrec_tpu_torch.device import full_f32_matmul
 from selfrec_tpu_torch.ops import dense_dual
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -436,3 +442,96 @@ def dense_spmm(adj: DenseAdj, x: torch.Tensor) -> torch.Tensor:
     else:
         out_u, out_i = _generic_products(adj.a_ui, xu, xi)
     return torch.cat([out_u, out_i], dim=0).to(x.dtype)
+
+
+class DenseMat:
+    """A static dense (M, N) matrix of arbitrary values in one block of
+    ``_generic_dtype()`` (bf16 by default and under the int8 opt-in, f32
+    under ``SELFREC_TPU_DENSE_DTYPE=float32``; spmm_dense.py:310-345):
+    MHCN's motif hypergraphs H_s, H_j, H_p (U × U) and its rating blocks R
+    (U × I) and Rᵀ, SEPT's social views. The backward multiplies by the
+    same block's transpose; no second copy is kept. The block's rows are
+    16-byte aligned (:func:`dense_dual.pitched_empty`): cuBLAS takes a
+    Turing-era ``align1`` GEMM for a bf16 block whose row length is not a
+    multiple of 8, 3.3× slower for R's backward at douban scale (PERF.md)."""
+
+    def __init__(self, a: torch.Tensor):
+        self.a = dense_dual._pitched(a)
+        self.n_nodes = a.shape[0]
+
+    @property
+    def shape(self):
+        return tuple(self.a.shape)
+
+    def __repr__(self):
+        gb = self.a.numel() * self.a.element_size() / 1e9
+        return f"DenseMat({self.a.shape[0]}x{self.a.shape[1]}, {self.a.dtype}, {gb:.3f} GB)"
+
+
+def dense_mat_from_scipy(mat, device="cuda") -> DenseMat:
+    """The block built on ``device`` from a host scipy matrix by one
+    scatter-add of its COO entries, each value rounded to
+    ``_generic_dtype()`` before the add, as the JAX package's
+    ``.astype(dtype)`` does (spmm_dense.py:373-387)."""
+    coo = mat.tocoo()
+    dtype = _generic_dtype()
+    a = dense_dual.pitched_empty(*mat.shape, dtype, device).zero_()
+    idx = (torch.as_tensor(coo.row.astype(np.int64), device=device),
+           torch.as_tensor(coo.col.astype(np.int64), device=device))
+    vals = torch.as_tensor(coo.data.astype(np.float32), device=device).to(dtype)
+    return DenseMat(a.index_put_(idx, vals, accumulate=True))
+
+
+def _mm_f32(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """a @ x summed in f32 for operands of one dtype (bf16 or f32), f32
+    out. bf16 on the card: cuBLAS with f32 output
+    (``torch.mm(..., out_dtype=float32)``) and reduced-precision
+    reductions off; on the CPU, which has no kernel for that, the operands
+    widened to f32 (each product exact). f32: a full-f32 GEMM, TF32 off."""
+    if a.dtype == torch.float32:
+        with full_f32_matmul():
+            return a @ x
+    if a.device.type != "cuda":
+        return a.float() @ x.float()
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        return torch.mm(a, x, out_dtype=torch.float32)
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = saved
+
+
+class _DenseMatSpmm(torch.autograd.Function):
+    """JAX's ``dot(a, x.astype(a.dtype), preferred_element_type=f32)
+    .astype(x.dtype)`` and its VJP (spmm_dense.py:348-350). Forward: x
+    rounded to the block's dtype, f32 sums, f32 out. Backward: the f32
+    cotangent times Aᵀ with f32 sums, then rounded to the block's dtype
+    (the gradient of ``x.astype``'s output) and back to f32. For a bf16
+    block the f32 cotangent goes in as :func:`dense_dual.split_f32`'s three
+    exact bf16 pieces side by side, one GEMM of width 3D, recombined in
+    f32; the rounding to bf16 after the sum is what JAX's gradient holds."""
+
+    @staticmethod
+    def forward(ctx, x, a):
+        ctx.save_for_backward(a)
+        ctx.x_dtype = x.dtype
+        return _mm_f32(a, x.to(a.dtype)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (a,) = ctx.saved_tensors
+        g = g.float()
+        if a.dtype == torch.float32:
+            gx = _mm_f32(a.T, g)
+        else:
+            d = g.shape[1]
+            hi, mid, lo = dense_dual.split_f32(g.contiguous())
+            p = _mm_f32(a.T, torch.cat([hi, mid, lo], dim=1))
+            gx = (p[:, :d] + p[:, d:2 * d] * 2.0 ** -8) + p[:, 2 * d:] * 2.0 ** -16
+        return gx.to(a.dtype).to(ctx.x_dtype), None
+
+
+def dense_mat_spmm(adj: DenseMat, x: torch.Tensor) -> torch.Tensor:
+    """adj @ x with f32 sums; the gradient flows to ``x`` only."""
+    return _DenseMatSpmm.apply(x, adj.a)

@@ -1,8 +1,9 @@
 """Session entry point (counterpart of ``selfrec_tpu/session.py``).
 
 Equivalent of the reference ``SELFRec`` dispatcher
-(reference/SELFRec.py:4-25): load raw train/test data once, construct
-the model class from the registry on ``device``, run its pipeline.
+(reference/SELFRec.py:4-25): load raw train/test (and social) data once,
+construct the model class from the registry on ``device``, run its
+pipeline.
 """
 
 from __future__ import annotations
@@ -34,12 +35,16 @@ class SelfRecTorch:
         self.test_data = test_data
         if self.test_data is None:
             self.test_data = io.load_data_set(config["test.set"], rec_type)
+        # the social models' relations (MHCN, SEPT), as session.py:36-38
+        self.kwargs = {}
+        if config.contain("social.data"):
+            self.kwargs["social.data"] = io.load_social_data(config["social.data"])
         print("Reading data and preprocessing...")
 
     def execute(self):
         cls = get_model_class(self.config["model"]["name"])
         recommender = cls(self.config, self.training_data, self.test_data,
-                          device=self.device)
+                          device=self.device, **self.kwargs)
         return recommender.execute()
 
 

@@ -20,6 +20,8 @@ from selfrec_tpu_torch.config import ModelConf
 from selfrec_tpu_torch.models import get_model_class
 from selfrec_tpu_torch.utils import checkpoint as ckpt
 
+from _social_data import SEPT_EXTRA, social_conf_dict, social_relations
+
 CASES = {
     "MF": ({}, {}),
     "XSimGCL-ell": ({"n_layer": 2, "l_star": 1, "lambda": 0.2, "eps": 0.2, "tau": 0.15},
@@ -159,3 +161,70 @@ def test_resume_traces_the_second_epoch_it_runs(tiny_graph_dataset, tmp_path):
     _run(tiny_graph_dataset, conf)
     files = os.listdir(tmp_path / "trace")
     assert len(files) == 1 and files[0].startswith("MF_epoch4_")
+
+
+SEPT_ARMS = {"ell": {"SELFREC_TPU_DENSE": "0"},
+             "dense": {"SELFREC_TPU_DENSE": "1", "SELFREC_TPU_DENSE_DTYPE": "float32"}}
+
+
+def _sept(dataset, tmp_path, tag):
+    """SEPT at max.epoch 9 (joint from epoch 4 on), a checkpoint every 2
+    epochs into ``tmp_path/tag``; built, not trained."""
+    conf = social_conf_dict("SEPT", SEPT_EXTRA, max_epoch=9, **{
+        "output": str(tmp_path / "out"), "checkpoint.dir": str(tmp_path / tag),
+        "checkpoint.interval": 2})
+    train, test = dataset
+    model = get_model_class("SEPT")(ModelConf(conf), train, test, device="cpu",
+                                    **{"social.data": social_relations()})
+    model.build()
+    return model
+
+
+@pytest.mark.parametrize("resume_step", [6, 2])
+@pytest.mark.parametrize("arm", sorted(SEPT_ARMS))
+def test_sept_resumed_equals_a_continuous_run(tiny_graph_dataset, tmp_path, monkeypatch,
+                                              arm, resume_step):
+    """SEPT resumed at step 6 (inside the joint phase: the restored Adam
+    moments are kept) or at step 2 (the warm phase: the joint phase's fresh
+    Adam is made once, at the boundary) equals 9 continuous epochs bit for
+    bit; either way the last Adam has run the joint phase's 5 epochs."""
+    import shutil
+
+    for k, v in SEPT_ARMS[arm].items():
+        monkeypatch.setenv(k, v)
+    full = _sept(tiny_graph_dataset, tmp_path, "full")
+    full.train()
+    assert full._joint_phase
+    shutil.copytree(tmp_path / "full", tmp_path / "part")
+    for step in (2, 4, 6, 8):
+        if step > resume_step:
+            shutil.rmtree(tmp_path / "part" / f"step_{step}")
+    resumed = _sept(tiny_graph_dataset, tmp_path, "part")
+    made = []
+    make = resumed.make_optimizer
+    monkeypatch.setattr(resumed, "make_optimizer", lambda p: made.append(1) or make(p))
+    resumed.train()
+    # the restore makes one optimizer; crossing the boundary one more
+    assert len(made) == (1 if resume_step == 6 else 2)
+    for k in full.params:
+        assert torch.equal(resumed.params[k], full.params[k]), k
+    n_batches = -(-full.data.n_edges // full.batch_size)
+    for a, b in zip(resumed.optimizer.state_dict()["state"].values(),
+                    full.optimizer.state_dict()["state"].values()):
+        assert float(a["step"]) == float(b["step"]) == 5 * n_batches
+        assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+
+
+def test_sept_continuous_run_makes_one_fresh_adam(tiny_graph_dataset, tmp_path,
+                                                  monkeypatch):
+    """Across the warm-to-joint boundary (epoch 3 to 4 of 9) the trainer
+    gets one fresh Adam, and no other."""
+    model = _sept(tiny_graph_dataset, tmp_path, "ckpt")
+    phases = []
+    run_epoch = model.run_epoch
+    monkeypatch.setattr(model, "run_epoch", lambda e: (
+        run_epoch(e), phases.append((e, model._joint_phase, id(model.optimizer))))[0])
+    model.train()
+    assert [j for _, j, _ in phases] == [False] * 4 + [True] * 5
+    assert len({o for _, _, o in phases}) == 2
+    assert phases[3][2] != phases[4][2] and len({o for _, _, o in phases[4:]}) == 1

@@ -42,7 +42,9 @@ def test_importing_every_module_loads_no_jax():
             "selfrec_tpu_torch.models.graph.sgl", "selfrec_tpu_torch.ops.kmeans",
             "selfrec_tpu_torch.models.graph.ncl", "selfrec_tpu_torch.models.graph.buir",
             "selfrec_tpu_torch.models.graph.selfcf",
-            "selfrec_tpu_torch.models.graph.ssl4rec"} <= set(mods)
+            "selfrec_tpu_torch.models.graph.ssl4rec", "selfrec_tpu_torch.models.graph.mhcn",
+            "selfrec_tpu_torch.models.graph.sept", "selfrec_tpu_torch.data.motifs",
+            "selfrec_tpu_torch.data.social"} <= set(mods)
     code = (
         "import sys, importlib, importlib.util, runpy\n"
         f"for m in {mods!r}:\n"
@@ -80,10 +82,12 @@ def test_registry_lists_every_model_and_refuses_unported():
 
     assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
     for name in ("SimGCL", "LightGCN", "SGL", "MF", "XSimGCL", "DirectAU", "MixGCF",
-                 "NCL", "BUIR", "SelfCF", "SSL4Rec", "UserKNN", "ItemKNN"):
+                 "NCL", "BUIR", "SelfCF", "SSL4Rec", "UserKNN", "ItemKNN", "MHCN", "SEPT"):
         assert get_model_class(name).__name__ == name
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model_class("MHCN")
+        assert get_model_class(name).__module__.startswith("selfrec_tpu_torch.")
+    for name in ("SASRec", "CL4SRec", "BERT4Rec"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            get_model_class(name)
     with pytest.raises(KeyError):
         get_model_class("NoSuchModel")
 
@@ -464,3 +468,62 @@ def test_knn_build_and_tie_order_on_the_card_match_the_cpu():
            for dev in ("cpu", "cuda")}
     for a, b in zip(got["cuda"], got["cpu"]):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dense_mat_spmm_on_the_card_matches_the_cpu(monkeypatch, dtype):
+    """DenseMat's product on the card (bf16: cuBLAS with f32 output, the
+    backward over the cotangent's three bf16 pieces; f32: a full-f32 GEMM)
+    against the CPU's at a ragged shape: forward rtol 1e-5 / atol 1e-6;
+    grads rtol 1e-5 in f32, and in bf16 within one bf16 step (rtol 2^-7) of
+    the CPU's, both bf16 values. Run as the dual kernel's test above."""
+    _needs_card()
+    import scipy.sparse as sp
+
+    from selfrec_tpu_torch.ops import spmm_dense
+
+    monkeypatch.setenv("SELFREC_TPU_DENSE_DTYPE", dtype)
+    a = sp.random(517, 1029, density=0.05, random_state=3, format="csr", dtype=np.float32)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((1029, 64), generator=gen)
+    g = torch.randn((517, 64), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        adj = spmm_dense.dense_mat_from_scipy(a, device=dev)
+        xr = x.to(dev).detach().requires_grad_(True)
+        y = spmm_dense.dense_mat_spmm(adj, xr)
+        y.backward(g.to(dev))
+        out[dev] = (y.detach().cpu(), xr.grad.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5, atol=1e-6)
+    if dtype == "float32":
+        torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-5, atol=1e-6)
+    else:
+        for grad in (out["cuda"][1], out["cpu"][1]):
+            assert torch.equal(grad.bfloat16().float(), grad)
+        torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_device_motifs_on_the_card_equal_the_cpu():
+    """The motif algebra on the card (f32 products, TF32 off in its own
+    scope even where the caller turned it on) equals the CPU's exactly: the
+    counts are integers."""
+    _needs_card()
+    import scipy.sparse as sp
+
+    from selfrec_tpu_torch.data import motifs
+
+    s = sp.random(300, 300, density=0.05, random_state=4, format="csr", dtype=np.float32)
+    s.data[:] = 1.0
+    y = sp.random(300, 400, density=0.05, random_state=5, format="csr", dtype=np.float32)
+    y.data[:] = 1.0
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # TF32 on for the caller
+    try:
+        card = motifs.mhcn_hypergraphs_device(s, y, "cuda")
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    for got, want in zip(card, motifs.mhcn_hypergraphs_device(s, y, "cpu")):
+        assert torch.equal(got.cpu(), want)
