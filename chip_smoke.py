@@ -152,6 +152,28 @@ relations, 155,341 distinct pairs; quarter douban 3,256 × 5,586):
     int8x8) and the ELL arm, on the card against the CPU: embeddings, one
     loss and (but for int8x8) its grads.
 
+SASRec, CL4SRec and BERT4Rec (bench.py:283-350: D 64, 2 blocks, 1 head,
+drop_rate 0.2, batch 256, max.len 50; BERT4Rec mask_rate 0.5; CL4SRec
+aug_type 0, aug_rate 0.5, cl_rate 0.05) on amazon-beauty-scale synthetic
+sequences (22,363 sequences over 12,101 items, utils/synth.py):
+32. each model: one epoch (88 steps; the first step apart, ms/step over
+    steps 2..88 and sequences/s), five more steps under the profiler, and
+    one test() plus ranking_evaluation (SASRec's under the profiler too)
+    with the ranking alone (``top_items``) timed apart; finite losses and
+    metrics, and no K1 or K2 launch on either path. For SASRec, one
+    batch's table lookups forward and backward timed as advanced indexing
+    and as the F.embedding the encoder takes.
+33. Small data (400 sequences over 300 items, max.len 20, D 32, drop_rate
+    0): each model, CL4SRec at aug_type 0, 1 and 2, on the card against the
+    CPU with the CPU's weights and the same batch, negatives and draws: the
+    encoder's output and the loss within rtol/atol 1e-5, the grads within
+    rtol 1e-4 / atol 1e-6 (TF32 off), the top-20 ids of every sequence
+    equal (a position may differ only where both devices' scores there
+    agree within rtol 1e-5, an f32 near-tie; the count is printed).
+34. Resume: SASRec on the small data (drop_rate 0) for 2 epochs, and for 1
+    then resumed to 2 (checkpoint.interval 1); params, best params and the
+    best epoch agree within rtol 2e-3 / atol 2e-4.
+
 Every path sets the launch counts to 0 just before it and reads them just
 after; each phase's knobs are set around it and restored. Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Any failure
@@ -1680,6 +1702,318 @@ def social_phases(k1_paths, k1_rows, k1_float, k2_paths, k2_rows):
     social_reference_phase()
 
 
+SEQ_CONF = {  # bench.py:291-293, 336-350
+    "SASRec": {"n_blocks": 2, "drop_rate": 0.2, "n_heads": 1},
+    "CL4SRec": {"n_blocks": 2, "drop_rate": 0.2, "n_heads": 1, "aug_type": 0,
+                "aug_rate": 0.5, "cl_rate": 0.05},
+    "BERT4Rec": {"n_blocks": 2, "drop_rate": 0.2, "n_heads": 1, "mask_rate": 0.5},
+}
+SEQ_RTOL, SEQ_ATOL = 1e-5, 1e-5            # the encoder's and the loss's (f32, TF32 off)
+SEQ_GRAD_RTOL, SEQ_GRAD_ATOL = 1e-4, 1e-6  # the grads' (tests/test_torch_sasrec.py)
+
+
+def seq_conf(name, extra, **top):
+    """bench.py's sequential configuration (bench.py:283-350): D 64, batch
+    256, max.len 50, lr 0.001, reg 1e-4, top-N 10 and 20."""
+    from selfrec_tpu_torch.config import ModelConf
+
+    conf = {
+        "training.set": "<synthetic>", "test.set": "<synthetic>",
+        "model": {"name": name, "type": "sequential"}, "item.ranking.topN": [10, 20],
+        "embedding.size": 64, "max.epoch": 1, "batch.size": 256, "learning.rate": 0.001,
+        "reg.lambda": 0.0001, "max.len": 50, name: extra,
+        "output": os.path.join("results", "chip_smoke"), "seed": 0,
+    }
+    conf.update(top)
+    return ModelConf(conf)
+
+
+def seq_draws(model, b, l, gen):
+    """The model's draws for one batch, made on the CPU, fed to both
+    devices: the views' augmentation draws (CL4SRec) or the masked
+    positions' uniforms (BERT4Rec); dropout is off."""
+    import torch
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen)
+
+    if model.model_name == "CL4SRec":
+        one = {0: lambda: u(b), 1: lambda: (u(b), u(b, l)), 2: lambda: u(b, l)}[model.aug_type]
+        return {"aug": (one(), one())}
+    if model.model_name == "BERT4Rec":
+        return {"mask": u(b, l)}
+    return None
+
+
+def to_device(tree, dev):
+    """Every tensor of a dict/tuple tree on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_device(v, dev) for v in tree)
+    return tree.to(dev) if hasattr(tree, "to") else tree
+
+
+def check_top_ids(tag, models):
+    """The top-20 ids of every sequence on the card equal the CPU's,
+    position by position. Where they differ, the two devices' scores at
+    that position must agree within rtol 1e-5 / atol 1e-6, which only a
+    near-tie (two ids whose f32 scores are that close, ordered by rounding)
+    allows; the count of such positions is returned and printed."""
+    import torch
+
+    (sc_cpu, id_cpu), (sc_gpu, id_gpu) = (
+        tuple(x.cpu() for x in models[dev].top_items()) for dev in ("cpu", "cuda"))
+    off = id_cpu != id_gpu
+    if not torch.allclose(sc_gpu, sc_cpu, rtol=1e-5, atol=1e-6):
+        raise RuntimeError(f"{tag}: the card's top-20 scores differ from the CPU's by up to "
+                           f"{float((sc_gpu - sc_cpu).abs().max())}")
+    return int(off.sum()), id_cpu.numel()
+
+
+def seq_reference_phase():
+    """Small data (400 sequences over 300 items, max.len 20, D 32, 2
+    blocks, drop_rate 0): each sequential model (CL4SRec at each aug_type)
+    on the card against the CPU, the CPU's weights and the same batch,
+    negatives and draws on both: the encoder's output and the loss within
+    rtol/atol 1e-5, the grads within rtol 1e-4 / atol 1e-6 (TF32 off), and
+    the top-20 ids of every sequence (check_top_ids)."""
+    import torch
+
+    from selfrec_tpu_torch.models import get_model_class
+    from selfrec_tpu_torch.ops import seq_sampling
+    from selfrec_tpu_torch.utils.synth import synth_sequences
+
+    t0 = time.time()
+    train, test = synth_sequences(n_seqs=400, n_items=300, seed=9)
+    cases = [("SASRec", {}), ("CL4SRec", {"aug_type": 0}), ("CL4SRec", {"aug_type": 1}),
+             ("CL4SRec", {"aug_type": 2}), ("BERT4Rec", {})]
+    for name, extra in cases:
+        conf = seq_conf(name, {**SEQ_CONF[name], "drop_rate": 0.0, **extra},
+                        **{"embedding.size": 32, "max.len": 20, "batch.size": 128})
+        models = {dev: get_model_class(name)(conf, train, test, device=dev)
+                  for dev in ("cpu", "cuda")}
+        for m in models.values():
+            m.build()
+        models["cuda"].set_params(models["cpu"].params)
+        cpu = models["cpu"]
+        gen = torch.Generator().manual_seed(3)
+        rows = torch.randperm(len(cpu.data.original_seq), generator=gen)[:128]
+        batch = {k: torch.as_tensor(a)[rows].long()
+                 for k, a in zip(("seq", "pos", "y", "seq_len"), cpu._train_arrays)}
+        batch["row_mask"] = (torch.arange(128) < 120).float()
+        batch["neg"] = seq_sampling.sample_seq_negatives(gen, batch["seq"], cpu.data.item_num)
+        draws = seq_draws(cpu, 128, 20, gen)
+        out = {}
+        for dev, m in models.items():
+            b, d = to_device(batch, dev), to_device(draws, dev)
+            params = {k: v.detach().clone().requires_grad_(True) for k, v in m.params.items()}
+            with torch.no_grad():
+                enc = m._encode(params, b["seq"], b["pos"])
+            loss = m.batch_loss(params, b, None, draws=d)
+            loss.backward()
+            out[dev] = (enc.cpu(), loss.detach().cpu(),
+                        {k: v.grad.cpu() for k, v in params.items()})
+        tag = f"seq reference {name}{extra.get('aug_type', '')}"
+        check_close(tag, "encoder output", out["cuda"][0], out["cpu"][0], SEQ_RTOL, SEQ_ATOL)
+        check_close(tag, "loss", out["cuda"][1], out["cpu"][1], SEQ_RTOL, SEQ_ATOL)
+        worst = 0.0
+        for k, g in out["cpu"][2].items():
+            check_close(tag, f"grad of {k}", out["cuda"][2][k], g, SEQ_GRAD_RTOL, SEQ_GRAD_ATOL)
+            worst = max(worst, float((out["cuda"][2][k] - g).abs().max()))
+        near_ties, n_ids = check_top_ids(tag, models)
+        log(f"[{tag}] {len(cpu.data.original_seq)} sequences, {cpu.data.item_num} items: "
+            f"encoder max |diff| {float((out['cuda'][0] - out['cpu'][0]).abs().max()):.3g}, "
+            f"loss {float(out['cpu'][1]):.6f} vs {float(out['cuda'][1]):.6f}, grads max |diff| "
+            f"{worst:.3g}; top-20 ids equal but {near_ties} near-tie positions of {n_ids}")
+    log(f"[seq reference] {time.time() - t0:.1f} s")
+
+
+def seq_resume_phase():
+    """Small data: SASRec on the card (D 32, max.len 20, drop_rate 0) for 2
+    epochs, and for 1 then resumed to 2 from its checkpoint
+    (checkpoint.interval 1); the params, the best params and the best
+    epoch agree within the graph resume phase's rtol 2e-3 / atol 2e-4."""
+    import contextlib
+    import shutil
+
+    import torch
+
+    from selfrec_tpu_torch.models.sequential.sasrec import SASRec
+    from selfrec_tpu_torch.utils.synth import synth_sequences
+
+    train, test = synth_sequences(n_seqs=400, n_items=300, seed=9)
+    root = os.path.join("results", "chip_smoke", f"seq_resume_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    def run(tag, epochs):
+        conf = seq_conf("SASRec", {**SEQ_CONF["SASRec"], "drop_rate": 0.0},
+                        **{"embedding.size": 32, "max.len": 20, "batch.size": 128,
+                           "max.epoch": epochs, "checkpoint.interval": 1,
+                           "checkpoint.dir": os.path.join(root, tag)})
+        model = SASRec(conf, train, test, device="cuda")
+        model.build()
+        with open(os.path.join(root, f"{tag}_{epochs}.log"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            model.train()
+        torch.cuda.synchronize()
+        return model
+
+    try:
+        t0 = time.time()
+        full = run("full", 2)
+        run("resumed", 1)
+        resumed = run("resumed", 2)
+        worst = 0.0
+        for k in full.params:
+            for what, a, b in (("params", resumed.params[k], full.params[k]),
+                               ("best params", resumed.best_params[k], full.best_params[k])):
+                worst = max(worst, float((a.detach() - b.detach()).abs().max()))
+                check_close("seq resume phase", f"{what} {k} after resuming at epoch 1",
+                            a.detach(), b.detach(), 2e-3, 2e-4)
+        if resumed.best_performance[0] != full.best_performance[0]:
+            raise RuntimeError(f"seq resume phase: best epoch {resumed.best_performance[0]} "
+                               f"after resuming, {full.best_performance[0]} continuous")
+        log(f"[seq resume] SASRec small data: 1 epoch + resume to 2 agrees with 2 epochs (max "
+            f"|diff| {worst:.3g}, rtol 2e-3 / atol 2e-4); {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def seq_path(tag, model, counters, profile_steps=N_PROFILE_STEPS, profile_eval=False):
+    """One epoch of ``model`` through the trainer's step (the first step
+    apart), then one full test() plus ranking_evaluation, each with the
+    launch counts of ``counters`` (name -> kernel wrapper) set to 0 just
+    before and read just after: none may launch. Checks finite losses and
+    metrics; ``profile_steps`` more steps, and with ``profile_eval`` one
+    more eval, under the profiler. Returns {name: launches} of the train
+    and eval runs."""
+    import torch
+
+    from selfrec_tpu_torch.utils import metrics
+
+    idx, row_mask = model.epoch_batches(0)
+    m = idx.shape[0]
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.time()
+    first = model.train_batches(idx[:1], row_mask[:1])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    rest = model.train_batches(idx[1:], row_mask[1:])
+    torch.cuda.synchronize()
+    t2 = time.time()
+    train_launches = {k: c.launches for k, c in counters.items()}
+    losses = torch.cat([first, rest]).cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise RuntimeError(f"{tag} train: non-finite losses {losses.tolist()}")
+    if any(train_launches.values()):
+        raise RuntimeError(f"{tag} train: kernel launches {train_launches}, expected none")
+    n_seqs = len(model.data.original_seq)
+    log(f"[train {tag}] {m} batches x {model.batch_size} ({n_seqs} sequences): loss "
+        f"{float(losses[0]):.6f} -> {float(losses[-1]):.6f}, epoch {t2 - t0:.3f} s, "
+        f"{n_seqs / (t2 - t0):.1f} sequences/s (first step {1e3 * (t1 - t0):.1f} ms; steps "
+        f"2..{m}: {1e3 * (t2 - t1) / (m - 1):.2f} ms/step, "
+        f"{(m - 1) * model.batch_size / (t2 - t1):.1f} sequences/s), launches {train_launches}")
+    if profile_steps:
+        profile_window(f"train {tag}", lambda: model.train_batches(
+            idx[:profile_steps], row_mask[:profile_steps]), profile_steps)
+
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.time()
+    rec_list = model.test()
+    measure = metrics.ranking_evaluation(model.data.test_set, rec_list, [model.max_N])
+    torch.cuda.synchronize()
+    eval_ms = 1e3 * (time.time() - t0)
+    eval_launches = {k: c.launches for k, c in counters.items()}
+    if any(eval_launches.values()):
+        raise RuntimeError(f"{tag} eval: kernel launches {eval_launches}, expected none")
+    perf = metrics.parse_measure(measure)
+    if len(rec_list) != n_seqs or not all(math.isfinite(v) for v in perf.values()):
+        raise RuntimeError(f"{tag} eval: {len(rec_list)} lists for {n_seqs} sequences, {perf}")
+    rank_ms = cuda_ms(model.top_items, reps=3)
+    log(f"[eval {tag}] test() + ranking_evaluation over {n_seqs} sequences: Recall@20 "
+        f"{perf['Recall']} NDCG@20 {perf['NDCG']}, {eval_ms:.1f} ms, launches {eval_launches}; "
+        f"ranking alone (top_items: {-(-n_seqs // model.batch_size)} blocks of encoder, "
+        f"scores and top-{model.max_N}) {rank_ms:.1f} ms")
+    if profile_eval:
+        profile_window(f"eval {tag}", lambda: metrics.ranking_evaluation(
+            model.data.test_set, model.test(), [model.max_N]), 1)
+    return train_launches, eval_launches
+
+
+def lookup_phase(model):
+    """The design choice behind the encoder's table lookups, timed on the
+    card: SASRec's four lookups of one batch (the item table at the
+    window, the targets and the negatives; the position table), forward
+    and backward, as advanced indexing (``table[ids]``, whose backward
+    walks each row's duplicates in turn) and as ``F.embedding`` (sorted
+    segment sums), from one batch of epoch 0; CUDA events, median of 5."""
+    import torch
+    import torch.nn.functional as F
+
+    from selfrec_tpu_torch.ops import seq_sampling
+
+    idx, _ = model.epoch_batches(0)
+    seq, pos, y, _ = (a[idx[0]] for a in model._train_dev)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    neg = seq_sampling.sample_seq_negatives(gen, seq, model.data.item_num)
+    item = model.params["item_emb"].detach().clone().requires_grad_(True)
+    pos_emb = model.params["pos_emb"].detach().clone().requires_grad_(True)
+    grad = torch.randn((*seq.shape, item.shape[1]), generator=gen, device="cuda")
+
+    def run(lookup):
+        item.grad = pos_emb.grad = None
+        out = lookup(item, seq) + lookup(pos_emb, pos) + lookup(item, y) + lookup(item, neg)
+        out.backward(grad)
+
+    ms_index = cuda_ms(lambda: run(lambda t, i: t[i]), reps=5)
+    ms_embed = cuda_ms(lambda: run(lambda t, i: F.embedding(i, t)), reps=5)
+    pads = int((seq == 0).sum())
+    log(f"[lookup SASRec] one batch's four lookups forward and backward ({seq.numel()} ids a "
+        f"lookup, {pads} pads): advanced indexing {ms_index:.3f} ms, F.embedding "
+        f"{ms_embed:.3f} ms")
+
+
+def sequential_phases(paths):
+    """SASRec, CL4SRec and BERT4Rec at bench.py's configurations on
+    amazon-beauty-scale synthetic sequences, then the small-data reference
+    and resume phases. ``paths`` maps each kernel's name to its wrapper and
+    its launches_by_path dict; each path's launches (all 0) are added."""
+    import torch
+
+    from selfrec_tpu_torch.models import get_model_class
+    from selfrec_tpu_torch.utils.synth import synth_sequences
+
+    t0 = time.time()
+    train, test = synth_sequences()
+    log(f"[setup] amazon-beauty-scale synthetic sequences ({len(train)} sequences) in "
+        f"{time.time() - t0:.1f} s")
+    counters = {name: wrapper for name, (wrapper, _) in paths.items()}
+    for name in ("SASRec", "CL4SRec", "BERT4Rec"):
+        t0 = time.time()
+        model = get_model_class(name)(seq_conf(name, SEQ_CONF[name]), train, test,
+                                      device="cuda")
+        model.build()
+        torch.cuda.synchronize()
+        log(f"[setup] {name}: {len(model.data.original_seq)} sequences, {model.data.item_num} "
+            f"items, vocab {model.vocab_size()}, {time.time() - t0:.1f} s")
+        train_l, eval_l = seq_path(name, model, counters, profile_eval=name == "SASRec")
+        if name == "SASRec":
+            lookup_phase(model)
+        for k, (_, by_path) in paths.items():
+            by_path[f"{name.lower()}_train"] = train_l[k]
+            by_path[f"{name.lower()}_eval"] = eval_l[k]
+        del model
+        torch.cuda.empty_cache()
+    seq_reference_phase()
+    seq_resume_phase()
+
+
 def main():
     import torch
 
@@ -1932,6 +2266,11 @@ def main():
         torch.cuda.empty_cache()
 
     social_phases(k1_paths, k1_rows, k1_float, k2_paths, k2_rows)
+
+    # SASRec, CL4SRec and BERT4Rec: no kernel of the port runs -----------------
+    sequential_phases({"K1 int8": (dense_dual.dual_matmul, k1_paths),
+                       "K1 float": (k1_float, k1f_paths),
+                       "K2": (ell_gather.ell_gather_sum, k2_paths)})
 
     k1_main = next(r for r in k1_rows if r["tag"] == "yelp" and r["shape"][2] == 192)
     k1f_main = next(r for r in k1f_rows if r["tag"] == "yelp" and r["shape"][2] == 64

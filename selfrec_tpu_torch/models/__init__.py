@@ -1,17 +1,16 @@
 """Model registry (counterpart of ``selfrec_tpu/models/__init__.py``).
 
 Lists every model name of the JAX package, with the same names and YAML
-config sections. Models not ported yet raise ``NotImplementedError``
-pointing at ROADMAP.md, which queues them.
+config sections; all 18 are ported.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
-# name -> (module path or None when not ported yet, class name, model type)
-MODEL_REGISTRY: Dict[str, Tuple[Optional[str], str, str]] = {
+# name -> (module path, class name, model type)
+MODEL_REGISTRY: Dict[str, Tuple[str, str, str]] = {
     "MF": ("selfrec_tpu_torch.models.graph.mf", "MF", "graph"),
     "LightGCN": ("selfrec_tpu_torch.models.graph.lightgcn", "LightGCN", "graph"),
     "DirectAU": ("selfrec_tpu_torch.models.graph.directau", "DirectAU", "graph"),
@@ -27,9 +26,9 @@ MODEL_REGISTRY: Dict[str, Tuple[Optional[str], str, str]] = {
     "ItemKNN": ("selfrec_tpu_torch.models.graph.itemknn", "ItemKNN", "graph"),
     "MHCN": ("selfrec_tpu_torch.models.graph.mhcn", "MHCN", "graph"),
     "SEPT": ("selfrec_tpu_torch.models.graph.sept", "SEPT", "graph"),
-    "SASRec": (None, "SASRec", "sequential"),
-    "CL4SRec": (None, "CL4SRec", "sequential"),
-    "BERT4Rec": (None, "BERT4Rec", "sequential"),
+    "SASRec": ("selfrec_tpu_torch.models.sequential.sasrec", "SASRec", "sequential"),
+    "CL4SRec": ("selfrec_tpu_torch.models.sequential.cl4srec", "CL4SRec", "sequential"),
+    "BERT4Rec": ("selfrec_tpu_torch.models.sequential.bert4rec", "BERT4Rec", "sequential"),
 }
 
 
@@ -38,8 +37,4 @@ def get_model_class(name: str):
         raise KeyError(
             f"Unknown model {name!r}. Available: {sorted(MODEL_REGISTRY)}")
     module_path, class_name, _ = MODEL_REGISTRY[name]
-    if module_path is None:
-        raise NotImplementedError(
-            f"{name} is not ported to selfrec_tpu_torch yet; ROADMAP.md "
-            "queues it")
     return getattr(importlib.import_module(module_path), class_name)

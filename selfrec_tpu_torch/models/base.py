@@ -1,4 +1,4 @@
-"""Recommender runtime (counterpart of ``selfrec_tpu/models/base.py:40-696``).
+"""Recommender runtime (counterpart of ``selfrec_tpu/models/base.py``).
 
 Same template-method pipeline as the reference ``Recommender.execute()``
 (reference/base/recommender.py:73-83: initializing_log →
@@ -7,12 +7,15 @@ best-by-majority-vote ``fast_evaluation`` bookkeeping
 (base/graph_recommender.py:81-104). The JAX package runs an epoch as one
 jitted ``lax.scan``; here it is a Python loop over batches, each step in the
 order of base.py:502-535: sample negatives, loss and grads, Adam step,
-``step_update``. Everything runs on one explicit ``device``.
+``step_update``. The sequential trainer (base.py:698-944) loops the same
+way over padded sequence batches. Everything runs on one explicit
+``device``.
 
 ``checkpoint.dir`` / ``checkpoint.interval`` (resume and periodic saves,
 :mod:`selfrec_tpu_torch.utils.checkpoint`) and ``profile.dir`` (a
 ``torch.profiler`` trace of one epoch) act as in the JAX package
-(base.py:624-690). Its mesh and multi-process keys raise at construction
+(base.py:624-690); the sequential trainer, like the JAX package's, has no
+profiler hook. Its mesh and multi-process keys raise at construction
 (:func:`refuse_unported_keys`).
 """
 
@@ -28,8 +31,9 @@ import torch
 
 from selfrec_tpu_torch.data import io
 from selfrec_tpu_torch.data.interaction import Interaction
+from selfrec_tpu_torch.data.sequence import Sequence
 from selfrec_tpu_torch.device import resolve_device
-from selfrec_tpu_torch.ops import ranking, sampling
+from selfrec_tpu_torch.ops import ranking, sampling, seq_sampling
 from selfrec_tpu_torch.ops.init import xavier_uniform
 from selfrec_tpu_torch.ops.precision import set_compute_dtype
 from selfrec_tpu_torch.utils import metrics
@@ -259,7 +263,59 @@ class GraphRecommender(_FastEvalMixin, Recommender):
         print(f"The result of {self.model_name}:\n{''.join(self.result)}")
 
 
-class TorchGraphRecommender(GraphRecommender):
+class _TrainStateMixin:
+    """What both trainers share: Adam over the flat params dict, the
+    per-epoch host RNG, and checkpoint/resume (base.py:572-576, 624-646;
+    the JAX package's sequential trainer borrows the graph trainer's hooks,
+    base.py:908, 925-927)."""
+
+    def make_optimizer(self, params: Dict[str, torch.Tensor]):
+        return torch.optim.Adam(list(params.values()), lr=self.lrate,
+                                betas=(0.9, 0.999), eps=1e-8)
+
+    def epoch_rng(self, epoch: int, stream: int = 0) -> np.random.Generator:
+        """Host RNG as a pure function of (seed, epoch, stream), the JAX
+        package's (base.py:572-576): per-epoch draws such as SGL's keep
+        masks and the sequential epoch's permutation are identical in both
+        packages."""
+        return np.random.default_rng((self.seed, epoch, stream))
+
+    def set_params(self, params: Dict[str, torch.Tensor]):
+        """Install ``params`` (copied to the device as trainable leaves) and a
+        fresh optimizer over them."""
+        self.params = {k: v.detach().to(self.device, torch.float32).clone()
+                       .requires_grad_(True) for k, v in params.items()}
+        self.optimizer = self.make_optimizer(self.params)
+
+    def _checkpoint_conf(self):
+        ckpt_dir = self.config.get("checkpoint.dir")
+        interval = int(self.config.get("checkpoint.interval", 5))
+        return ckpt_dir, interval
+
+    def _maybe_resume(self) -> int:
+        """Restore the latest checkpoint under ``checkpoint.dir``, if any;
+        returns the epoch to start from."""
+        from selfrec_tpu_torch.utils import checkpoint as ckpt
+
+        ckpt_dir, _ = self._checkpoint_conf()
+        if not ckpt_dir:
+            return 0
+        step, state = ckpt.restore_checkpoint(ckpt_dir)
+        if step is None:
+            return 0
+        ckpt.apply_train_state(self, state)
+        print(f"Resumed from checkpoint step {step} in {ckpt_dir}")
+        return step
+
+    def _maybe_checkpoint(self, epoch: int):
+        from selfrec_tpu_torch.utils import checkpoint as ckpt
+
+        ckpt_dir, interval = self._checkpoint_conf()
+        if ckpt_dir and (epoch + 1) % interval == 0:
+            ckpt.save_checkpoint(ckpt_dir, epoch + 1, ckpt.train_state(self))
+
+
+class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
     """Shared training machinery for embedding-table graph models, on one
     device (the single-device counterpart of ``JAXGraphRecommender``).
 
@@ -318,10 +374,6 @@ class TorchGraphRecommender(GraphRecommender):
         """Post-optimizer per-step aux update; default: aux unchanged."""
         return aux
 
-    def make_optimizer(self, params: Dict[str, torch.Tensor]):
-        return torch.optim.Adam(list(params.values()), lr=self.lrate,
-                                betas=(0.9, 0.999), eps=1e-8)
-
     def make_adj(self, scipy_norm_adj=None):
         """Device adjacency for the unified Laplacian (``data.norm_adj`` by
         default): the dense-bipartite block where ``SELFREC_TPU_DENSE`` and
@@ -333,19 +385,6 @@ class TorchGraphRecommender(GraphRecommender):
         return norm_adj_from_scipy(mat, self.data.user_num, device=self.device)
 
     # -- machinery ------------------------------------------------------------
-    def epoch_rng(self, epoch: int, stream: int = 0) -> np.random.Generator:
-        """Host RNG as a pure function of (seed, epoch, stream), the JAX
-        package's (base.py:572-576): per-epoch draws such as SGL's keep
-        masks are identical in both packages."""
-        return np.random.default_rng((self.seed, epoch, stream))
-
-    def set_params(self, params: Dict[str, torch.Tensor]):
-        """Install ``params`` (copied to the device as trainable leaves) and a
-        fresh optimizer over them."""
-        self.params = {k: v.detach().to(self.device, torch.float32).clone()
-                       .requires_grad_(True) for k, v in params.items()}
-        self.optimizer = self.make_optimizer(self.params)
-
     def build(self):
         self.set_params(self.init_params(self.generator))
         # the rated CSR on the device, and the packed-bitmap sampler when
@@ -428,34 +467,7 @@ class TorchGraphRecommender(GraphRecommender):
     def embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.compute_embeddings(self.params)
 
-    # -- checkpoint/resume and the profiler hook (base.py:624-666) ------------
-    def _checkpoint_conf(self):
-        ckpt_dir = self.config.get("checkpoint.dir")
-        interval = int(self.config.get("checkpoint.interval", 5))
-        return ckpt_dir, interval
-
-    def _maybe_resume(self) -> int:
-        """Restore the latest checkpoint under ``checkpoint.dir``, if any;
-        returns the epoch to start from."""
-        from selfrec_tpu_torch.utils import checkpoint as ckpt
-
-        ckpt_dir, _ = self._checkpoint_conf()
-        if not ckpt_dir:
-            return 0
-        step, state = ckpt.restore_checkpoint(ckpt_dir)
-        if step is None:
-            return 0
-        ckpt.apply_train_state(self, state)
-        print(f"Resumed from checkpoint step {step} in {ckpt_dir}")
-        return step
-
-    def _maybe_checkpoint(self, epoch: int):
-        from selfrec_tpu_torch.utils import checkpoint as ckpt
-
-        ckpt_dir, interval = self._checkpoint_conf()
-        if ckpt_dir and (epoch + 1) % interval == 0:
-            ckpt.save_checkpoint(ckpt_dir, epoch + 1, ckpt.train_state(self))
-
+    # -- the profiler hook (base.py:648-666) ----------------------------------
     def _profiler_hook(self, epoch: int, start_epoch: int):
         """``torch.profiler`` trace of one steady-state epoch, the second of
         this process (the first pays the kernel builds and allocator
@@ -519,3 +531,191 @@ class TorchGraphRecommender(GraphRecommender):
         user_emb, item_emb = self.current_embeddings()
         self.best_user_emb = user_emb.clone()
         self.best_item_emb = item_emb.clone()
+
+
+class SequentialRecommender(_FastEvalMixin, Recommender):
+    """Sequential recommender base: padded-array data and blocked device
+    eval (counterpart of base.py:698-790).
+
+    Parity with reference base/seq_recommender.py:8-83: eval scores the
+    LAST position of every training sequence against the whole vocabulary
+    (no rated-item masking, SASRec.py:55-60), takes the top max_N, and
+    filters pad and out-of-vocabulary ids AFTER the top-k
+    (seq_recommender.py:47-50), so lists may be short; ``evaluate()``
+    returns 0 (seq_recommender.py:57-58).
+    """
+
+    def __init__(self, conf, training_set, test_set, device=None, **kwargs):
+        super().__init__(conf, training_set, test_set, device=device, **kwargs)
+        self.data = Sequence(conf, training_set, test_set)
+        self.max_len = int(conf["max.len"])
+        self.best_performance: list = []
+        self.topN = [int(n) for n in self.ranking_topns]
+        self.max_N = max(self.topN)
+        self.params: Optional[Dict[str, torch.Tensor]] = None
+        self._test_dev = None  # the padded test windows on the device
+
+    def print_model_info(self):
+        super().print_model_info()
+        print(
+            f"Training Set Size: (sequence number: {self.data.raw_seq_num},"
+            f" item number: {self.data.item_num})"
+        )
+        print("=" * 80)
+
+    def predict_scores(self, params, seq, pos, seq_len) -> torch.Tensor:
+        """(B, vocab) last-position scores; model-specific."""
+        raise NotImplementedError
+
+    def _test_windows(self):
+        """The test windows in blocks of ``batch.size``, the last block
+        padded with empty windows of length 1 (base.py:737-744), as int64
+        on the device; built once."""
+        if self._test_dev is None:
+            seq, pos, seq_len = self.data.padded_test_arrays(self.max_len)
+            n_pad = (-seq.shape[0]) % self.batch_size
+            if n_pad:
+                seq = np.concatenate([seq, np.zeros((n_pad, seq.shape[1]), seq.dtype)])
+                pos = np.concatenate([pos, np.zeros((n_pad, pos.shape[1]), pos.dtype)])
+                seq_len = np.concatenate([seq_len, np.ones(n_pad, seq_len.dtype)])
+            self._test_dev = tuple(torch.as_tensor(a, dtype=torch.int64, device=self.device)
+                                   for a in (seq, pos, seq_len))
+        return self._test_dev
+
+    @torch.no_grad()
+    def top_items(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(scores, ids), each (sequences, max_N) on the device: every
+        training sequence's next item ranked over the whole vocabulary, pad
+        and mask ids included, one block of ``batch.size`` at a time
+        (base.py:728-766)."""
+        seq, pos, seq_len = self._test_windows()
+        bs = self.batch_size
+        tops = [ranking.topk_scores_unmasked(
+                    self.predict_scores(self.params, seq[s:s + bs], pos[s:s + bs],
+                                        seq_len[s:s + bs]), self.max_N)
+                for s in range(0, seq.shape[0], bs)]
+        n = len(self.data.original_seq)
+        return torch.cat([t[0] for t in tops])[:n], torch.cat([t[1] for t in tops])[:n]
+
+    def test(self) -> Dict[str, list]:
+        """:meth:`top_items` as {sequence: [(item, score), ...]}, pad and
+        out-of-vocabulary ids dropped (base.py:767-787)."""
+        scores, ids = self.top_items()
+        scores, ids = scores.double().cpu().numpy(), ids.cpu().numpy()
+        n = ids.shape[0]
+        # pad/oov ids are filtered AFTER top-k, so lists may be short
+        # (reference quirk, base/seq_recommender.py:47-50)
+        keep = (ids > 0) & (ids <= self.data.item_num)
+        item_names = ranking._cached_names(
+            self.data, "_item_names_arr", self.data.id2item, self.data.item_num + 1)
+        name_rows = item_names[np.where(keep, ids, 0)].tolist()
+        score_rows = scores.tolist()
+        keep_rows = keep.tolist()
+        rec_list: Dict[str, list] = {}
+        for r in range(n):
+            rec_list[self.data.original_seq[r][0]] = [
+                (nm, sc) for nm, sc, kp in zip(name_rows[r], score_rows[r], keep_rows[r])
+                if kp]
+        return rec_list
+
+    def evaluate(self, rec_list):
+        return 0
+
+
+class TorchSequentialRecommender(_TrainStateMixin, SequentialRecommender):
+    """Training over padded sequence batches on one device (counterpart of
+    ``JAXSequentialRecommender``, base.py:793-944).
+
+    Subclasses implement:
+      init_params(generator) -> params (flat dict of tensors)
+      batch_loss(params, batch, generator, draws=None) -> scalar loss, with
+        batch keys seq/pos/y/neg (B, max_len), seq_len and row_mask (B,);
+        ``draws`` feeds the model's random draws (augmentations, dropout
+        keep masks) in place of the generator's
+      predict_scores(params, seq, pos, seq_len) -> (B, vocab)
+    The padded arrays go to the device once; an epoch ships only its
+    permutation. Each step gathers its batch on the device, draws the
+    negatives and then the model's draws from the step generator, and
+    takes one Adam step.
+    """
+
+    n_neg_rounds = 4
+    log_batch_interval = 50
+
+    def __init__(self, conf, training_set, test_set, device=None, **kwargs):
+        super().__init__(conf, training_set, test_set, device=device, **kwargs)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.seed)
+        self.optimizer = None
+        self.best_params: Optional[Dict[str, torch.Tensor]] = None
+        self._train_arrays = self.data.padded_training_arrays(self.max_len)
+        self._train_dev = None
+
+    def init_params(self, generator) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def batch_loss(self, params, batch: Dict[str, torch.Tensor], generator, draws=None):
+        raise NotImplementedError
+
+    def build(self):
+        self.set_params(self.init_params(self.generator))
+
+    def epoch_batches(self, epoch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(n_batches, batch_size) row indices and row masks on the device:
+        the permutation of ``epoch_rng(epoch)``, the last batch padded with
+        row 0 and mask 0 (base.py:895-906)."""
+        n = self._train_arrays[0].shape[0]
+        perm = self.epoch_rng(epoch).permutation(n)
+        bs = self.batch_size
+        n_batches = -(-n // bs)
+        pad = n_batches * bs - n
+        idx = np.concatenate([perm, np.zeros(pad, dtype=perm.dtype)])
+        row_mask = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+        return (torch.as_tensor(idx.reshape(n_batches, bs), dtype=torch.int64,
+                                device=self.device),
+                torch.as_tensor(row_mask.reshape(n_batches, bs), device=self.device))
+
+    def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One step: negatives, loss and grads, Adam (base.py:844-855).
+        Returns the loss (a device scalar, detached)."""
+        neg = seq_sampling.sample_seq_negatives(
+            self.generator, batch["seq"], self.data.item_num, self.n_neg_rounds)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.batch_loss(self.params, dict(batch, neg=neg), self.generator)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def train_batches(self, idx: torch.Tensor, row_masks: torch.Tensor) -> torch.Tensor:
+        """:meth:`train_step` over the batches of rows ``idx`` gathered on
+        the device; returns the (n_batches,) losses on the device."""
+        if self._train_dev is None:
+            self._train_dev = tuple(torch.as_tensor(a, dtype=torch.int64, device=self.device)
+                                    for a in self._train_arrays)
+        seq, pos, y, seq_len = self._train_dev
+        return torch.stack([
+            self.train_step({"seq": seq[i], "pos": pos[i], "y": y[i],
+                             "seq_len": seq_len[i], "row_mask": m})
+            for i, m in zip(idx, row_masks)])
+
+    def run_epoch(self, epoch: int) -> np.ndarray:
+        return self.train_batches(*self.epoch_batches(epoch)).cpu().numpy()
+
+    def train(self):
+        """Resume, then per epoch: the epoch, every 50th batch's loss, eval
+        and a checkpoint every ``checkpoint.interval`` epochs; the best
+        params at the end (base.py:929-941)."""
+        start_epoch = self._maybe_resume()
+        for epoch in range(start_epoch, self.max_epoch):
+            losses = self.run_epoch(epoch)
+            for b in range(0, len(losses), self.log_batch_interval):
+                print("training:", epoch + 1, "batch", b, "rec_loss:", float(losses[b]))
+            self.fast_evaluation(epoch)
+            self._maybe_checkpoint(epoch)
+        if self.best_params is not None:
+            with torch.no_grad():
+                for k, v in self.best_params.items():
+                    self.params[k].copy_(v)
+
+    def save(self):
+        self.best_params = {k: v.detach().clone() for k, v in self.params.items()}

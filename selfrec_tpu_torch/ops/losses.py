@@ -1,5 +1,5 @@
-"""Training objectives (the part of ``selfrec_tpu/ops/losses.py:19-195`` that
-the ported models need; the remaining losses come with their models).
+"""Training objectives (counterpart of ``selfrec_tpu/ops/losses.py``, every
+loss of it, those no model calls included).
 
 Every loss takes an optional ``mask`` so fixed-shape padded batches reduce
 over valid rows only; with a full batch the results match the reference
@@ -36,6 +36,14 @@ def bpr_loss(user_emb, pos_item_emb, neg_item_emb, mask=None):
     neg_score = torch.sum(user_emb * neg_item_emb, dim=-1)
     loss = -torch.log(1e-5 + torch.sigmoid(pos_score - neg_score))
     return _masked_mean(loss, mask)
+
+
+def triplet_loss(user_emb, pos_item_emb, neg_item_emb, margin: float = 0.5, mask=None):
+    """relu(|u - p|^2 - |u - n|^2 + margin), the squared-distance triplet
+    (losses.py:46-51; reference loss_torch.py:12-16)."""
+    pos_score = torch.sum((user_emb - pos_item_emb) ** 2, dim=-1)
+    neg_score = torch.sum((user_emb - neg_item_emb) ** 2, dim=-1)
+    return _masked_mean(torch.relu(pos_score - neg_score + margin), mask)
 
 
 def l2_loss(x: torch.Tensor) -> torch.Tensor:
@@ -100,6 +108,55 @@ def infonce(view1, view2, temperature: float, b_cos: bool = True, mask=None):
     log_probs = F.log_softmax(logits, dim=1)
     diag = torch.diagonal(log_probs)
     return -_masked_mean(diag, mask)
+
+
+def info_nce_recbole(z_i, z_j, temp: float, batch_size: int, sim: str = "dot"):
+    """RecBole's 2N-view InfoNCE (losses.py:99-121; reference
+    loss_torch.py:54-88): each of the 2N rows has its other view as the
+    positive and the other 2(N-1) rows as negatives, the positive
+    prepended as class 0 of a cross-entropy."""
+    n = 2 * batch_size
+    z = torch.cat([z_i, z_j], dim=0)
+    if sim == "cos":
+        zn = l2_normalize(z)
+        sim_mat = zn @ zn.T / temp
+    else:
+        sim_mat = z @ z.T / temp
+    pos = torch.cat([torch.diagonal(sim_mat, offset=batch_size),
+                     torch.diagonal(sim_mat, offset=-batch_size)])
+    idx = torch.arange(n, device=z.device)
+    self_mask = idx[:, None] == idx[None, :]
+    pair_mask = ((idx[:, None] == idx[None, :] + batch_size)
+                 | (idx[:, None] + batch_size == idx[None, :]))
+    neg_logits = torch.where(self_mask | pair_mask, torch.full_like(sim_mat, -1e9), sim_mat)
+    logits = torch.cat([pos[:, None], neg_logits], dim=1)
+    return -torch.mean(F.log_softmax(logits, dim=1)[:, 0])
+
+
+def kl_divergence(p_logit, q_logit):
+    """KL(softmax(p) || softmax(q)) per row, averaged (losses.py:124-131;
+    reference loss_torch.py:91-94)."""
+    p = torch.softmax(p_logit, dim=-1)
+    kl = torch.sum(p * (F.log_softmax(p_logit, dim=-1) - F.log_softmax(q_logit, dim=-1)),
+                   dim=1)
+    return torch.mean(kl)
+
+
+def ssm_loss(user_emb, pos_item_emb, neg_item_emb, mask=None):
+    """Sampled softmax over explicit negatives at tau 0.2 (losses.py:198-212;
+    reference util/loss_tf.py:19-29): every embedding l2-normalised, the
+    positive prepended to the negative columns of the denominator."""
+    user_emb = l2_normalize(user_emb)
+    pos_item_emb = l2_normalize(pos_item_emb)
+    neg_item_emb = l2_normalize(neg_item_emb)
+    pos_score = torch.sum(user_emb * pos_item_emb, dim=1)
+    ttl = user_emb @ neg_item_emb.T
+    if mask is not None:
+        ttl = torch.where(mask.to(torch.bool)[None, :], ttl, torch.full_like(ttl, -1e9))
+    ttl = torch.cat([pos_score[:, None], ttl], dim=1)
+    pos_e = torch.exp(pos_score / 0.2)
+    ttl_e = torch.sum(torch.exp(ttl / 0.2), dim=1)
+    return -_masked_mean(torch.log(pos_e / ttl_e), mask)
 
 
 def alignment_loss_masked(x, y, mask=None):

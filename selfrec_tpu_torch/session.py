@@ -22,11 +22,8 @@ class SelfRecTorch:
         self.config = config
         self.device = resolve_device(device)
         rec_type = config["model"]["type"]
-        if rec_type != "graph":
-            raise NotImplementedError(
-                "sequential models are not ported yet (ROADMAP.md)")
         self.training_data = training_data
-        if self.training_data is None:
+        if self.training_data is None and rec_type == "graph":
             # array-native fast path: native loader + Interaction's mapped
             # constructor
             self.training_data = io.load_graph_mapped(config["training.set"])

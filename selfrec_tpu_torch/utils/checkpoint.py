@@ -5,7 +5,8 @@ The reference keeps its best embeddings in process memory only
 checkpoints through orbax, and this module does the same with
 ``torch.save``. A checkpoint is ``<dir>/step_<N>/state.pt``: the params,
 the optimizer's ``state_dict`` (Adam's moments and step count), the step
-generator's state, ``aux`` and the best-tracking state, every tensor on
+generator's state, ``aux`` and the best-tracking state (with the best
+embeddings, or a sequential model's best params), every tensor on
 the CPU, loadable with ``torch.load(weights_only=True)``. An orbax
 checkpoint of the JAX package and one of this module are not
 interchangeable.
@@ -74,7 +75,9 @@ def restore_checkpoint(directory: str, step: Optional[int] = None
 
 def _pack_best(model) -> dict:
     """Best-model tracking: epoch and the four metrics as one float64
-    vector (epoch -1 = none yet), and the best embeddings when there are."""
+    vector (epoch -1 = none yet), and the best snapshot when there is one:
+    a sequential model's params, a graph model's embeddings
+    (checkpoint.py:75-98)."""
     bp = model.best_performance
     vec = torch.full((1 + len(_METRIC_KEYS),), -1.0, dtype=torch.float64)
     if bp:
@@ -82,7 +85,9 @@ def _pack_best(model) -> dict:
         for i, k in enumerate(_METRIC_KEYS):
             vec[1 + i] = bp[1].get(k, -1.0)
     best = {"perf": vec}
-    if model.best_user_emb is not None:
+    if getattr(model, "best_params", None) is not None:
+        best["params"] = dict(model.best_params)
+    elif getattr(model, "best_user_emb", None) is not None:
         best["user_emb"] = model.best_user_emb
         best["item_emb"] = model.best_item_emb
     return best
@@ -93,18 +98,21 @@ def _apply_best(model, best: dict) -> None:
     if vec[0] >= 0:
         model.best_performance = [
             int(vec[0]), {k: vec[1 + i] for i, k in enumerate(_METRIC_KEYS)}]
-        if "user_emb" in best:
+        if "params" in best:
+            model.best_params = _to(best["params"], model.device)
+        elif "user_emb" in best:
             model.best_user_emb = best["user_emb"].to(model.device)
             model.best_item_emb = best["item_emb"].to(model.device)
 
 
 def train_state(model) -> dict:
-    """The resumable state of a graph recommender of the port."""
+    """The resumable state of a graph or sequential recommender of the
+    port (a sequential one has no aux)."""
     return {
         "params": {k: v.detach() for k, v in model.params.items()},
         "optimizer": model.optimizer.state_dict(),
         "generator": model.generator.get_state(),
-        "aux": model.aux,
+        "aux": getattr(model, "aux", {}),
         "best": _pack_best(model),
     }
 

@@ -6,7 +6,8 @@ package's.
 A run stopped after epoch 2 and resumed to epoch 4 equals a continuous
 4-epoch run exactly on the CPU, aux included (SelfCF's history buffers): the epoch shuffles are functions of (seed,
 epoch), the step generator's state is restored, and every CPU op here is
-deterministic. (chip_smoke.py makes the same comparison on the card, held
+deterministic. The sequential trainer resumes the same way, its best
+params in the checkpoint. (chip_smoke.py makes the same comparison on the card, held
 to the JAX test's rtol 2e-3 / atol 2e-4.)
 """
 
@@ -228,3 +229,55 @@ def test_sept_continuous_run_makes_one_fresh_adam(tiny_graph_dataset, tmp_path,
     assert [j for _, j, _ in phases] == [False] * 4 + [True] * 5
     assert len({o for _, _, o in phases}) == 2
     assert phases[3][2] != phases[4][2] and len({o for _, _, o in phases[4:]}) == 1
+
+
+SEQ_CASES = {  # dropout on: the step generator's draws must resume too
+    "SASRec": {"drop_rate": 0.2},
+    "CL4SRec": {"drop_rate": 0.2, "aug_type": 1},
+    "BERT4Rec": {"drop_rate": 0.2},
+}
+
+
+@pytest.mark.parametrize("name", sorted(SEQ_CASES))
+def test_sequential_resume_at_epoch_two_equals_a_continuous_run(tmp_path, name):
+    """The sequential trainer shares the graph trainer's hooks: 2 epochs
+    then resumed to 4 equal 4 continuous epochs exactly, Adam's state, the
+    generator, the best params and best_performance included. One CPU
+    thread: above their grain size torch's CPU index and scatter backward
+    sum in an order that varies with the threads, run to run."""
+    from _seq_data import seq_conf_dict, seq_dataset
+
+    train, test = seq_dataset()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+
+    def run(tag, epochs):
+        conf = ModelConf(dict(seq_conf_dict(name, SEQ_CASES[name]), **{
+            "max.epoch": epochs, "checkpoint.dir": str(tmp_path / tag),
+            "checkpoint.interval": 2, "output": str(tmp_path / "out")}))
+        model = get_model_class(name)(conf, train, test, device="cpu")
+        model.build()
+        model.train()
+        return model
+
+    try:
+        full = run("full", 4)
+        first = run("resumed", 2)
+        resumed = run("resumed", 4)
+    finally:
+        torch.set_num_threads(threads)
+    assert sorted(os.listdir(tmp_path / "resumed")) == ["step_2", "step_4"]
+    assert not torch.equal(first.params["item_emb"], full.params["item_emb"])
+    assert list(resumed.params) == list(full.params)
+    for k in full.params:
+        assert torch.equal(resumed.params[k], full.params[k]), k
+        assert torch.equal(resumed.best_params[k], full.best_params[k]), k
+    for a, b in zip(resumed.optimizer.state_dict()["state"].values(),
+                    full.optimizer.state_dict()["state"].values()):
+        assert float(a["step"]) == float(b["step"]) == 4 * 4  # 120 sequences, batch 32
+        assert torch.equal(a["exp_avg"], b["exp_avg"])
+        assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+    assert torch.equal(resumed.generator.get_state(), full.generator.get_state())
+    assert resumed.best_performance == full.best_performance
+    state = torch.load(tmp_path / "resumed" / "step_2" / ckpt.STATE_FILE, weights_only=True)
+    assert set(state["best"]) == {"perf", "params"} and state["aux"] == {}

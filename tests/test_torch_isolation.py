@@ -44,7 +44,12 @@ def test_importing_every_module_loads_no_jax():
             "selfrec_tpu_torch.models.graph.selfcf",
             "selfrec_tpu_torch.models.graph.ssl4rec", "selfrec_tpu_torch.models.graph.mhcn",
             "selfrec_tpu_torch.models.graph.sept", "selfrec_tpu_torch.data.motifs",
-            "selfrec_tpu_torch.data.social"} <= set(mods)
+            "selfrec_tpu_torch.data.social", "selfrec_tpu_torch.data.sequence",
+            "selfrec_tpu_torch.data.augmentor", "selfrec_tpu_torch.utils.similarity",
+            "selfrec_tpu_torch.ops.seq_sampling", "selfrec_tpu_torch.ops.transformer",
+            "selfrec_tpu_torch.models.sequential.sasrec",
+            "selfrec_tpu_torch.models.sequential.cl4srec",
+            "selfrec_tpu_torch.models.sequential.bert4rec"} <= set(mods)
     code = (
         "import sys, importlib, importlib.util, runpy\n"
         f"for m in {mods!r}:\n"
@@ -78,16 +83,16 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 
 
 def test_registry_lists_every_model_and_refuses_unported():
+    """All 18 models of the JAX package resolve to classes of the port, the
+    sequential ones under models.sequential; an unknown name raises."""
     from selfrec_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
 
-    assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
-    for name in ("SimGCL", "LightGCN", "SGL", "MF", "XSimGCL", "DirectAU", "MixGCF",
-                 "NCL", "BUIR", "SelfCF", "SSL4Rec", "UserKNN", "ItemKNN", "MHCN", "SEPT"):
-        assert get_model_class(name).__name__ == name
-        assert get_model_class(name).__module__.startswith("selfrec_tpu_torch.")
-    for name in ("SASRec", "CL4SRec", "BERT4Rec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_model_class(name)
+    assert set(MODEL_REGISTRY) == set(JAX_REGISTRY) and len(MODEL_REGISTRY) == 18
+    for name, (_, _, kind) in JAX_REGISTRY.items():
+        cls = get_model_class(name)
+        assert cls.__name__ == name
+        assert cls.__module__.startswith(f"selfrec_tpu_torch.models.{kind}.")
+        assert MODEL_REGISTRY[name][2] == kind
     with pytest.raises(KeyError):
         get_model_class("NoSuchModel")
 
