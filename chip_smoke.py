@@ -174,6 +174,32 @@ sequences (22,363 sequences over 12,101 items, utils/synth.py):
     then resumed to 2 (checkpoint.interval 1); params, best params and the
     best epoch agree within rtol 2e-3 / atol 2e-4.
 
+Scale-out (selfrec_tpu_torch.parallel), one card:
+35. NCCL at world size 1 in this process: all_reduce, all_gather,
+    reduce_scatter and all_to_all on the card; a ShardedDenseAdj and a
+    HaloAdj over a 1x1 mesh on the yelp graph, one propagation each,
+    equal to DenseAdj int8 exactly and to EllAdj within 2e-5. Then two
+    NCCL ranks on the card, whose refusal is printed (not a gate).
+36. Two ranks on the card over gloo (this file run with
+    ``--scale-out-rank``, each with a timeout; a rank that fails or times
+    out fails the script): SimGCL int8x8 on the yelp graph on a 1x2 and a
+    2x1 mesh (each rank's K1 on its slice exactly equal to the plain
+    version at D 192 and 64, timed on rank 0 alone against its bound; the
+    JAX package's int8 gate, 0.02 of each column's largest value, on its
+    own test's inputs, and the same measure on the yelp graph printed for
+    the sharded and the single-device block; 10 steps, 6 K1 launches a
+    rank a step, three more on 1x2 under the profiler on both ranks; one
+    eval, 3 a rank, the 1x2 one through the sharded top-k); SimGCL in the
+    f32 dense mode on the small graph, 3 steps equal to the single-device
+    card run within rtol 2e-4 / atol 2e-5; SGL's ELL arm on 1x2 (HaloAdj;
+    each rank's K2 on its halo layout within 2e-5, timed on rank 0; 10
+    steps, 4 K2 launches a rank a step, three more under the profiler; one
+    eval); SASRec at bench widths on 1x2 (6 steps) and MHCN on
+    ShardedDenseMat at quarter douban on 1x2 (5 steps). After each model:
+    data replicas bit-equal, full params equal on every rank. Prints
+    ms/step and ms/eval for two ranks sharing the card and the bytes a
+    rank receives a step.
+
 Every path sets the launch counts to 0 just before it and reads them just
 after; each phase's knobs are set around it and restored. Prints the kernel table as one JSON line, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Any failure
@@ -2014,12 +2040,581 @@ def sequential_phases(paths):
     seq_resume_phase()
 
 
+# -- scale-out: the (data, model) mesh over torch.distributed -----------------------
+
+SCALE_OUT_TIMEOUT_S = 480    # one rank process, its setup included
+PARALLEL_RTOL, PARALLEL_ATOL = 2e-4, 2e-5  # the JAX package's (tests/test_parallel.py:58-59)
+INT8_COL_REL = 0.02          # the JAX package's (tests/test_dense_shard.py:235-236)
+# the sharded int8 propagation on the yelp graph against the single-device
+# block, in the same column-relative measure: local per-channel scales are
+# no coarser than the block's global ones, and both read 0.0229 on 1x2 and
+# 2x1 on an H100; the margin allows for the sum order
+INT8_SHARDED_MARGIN = 0.05
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_world_one_phase(data, k1_paths, k2_paths):
+    """NCCL at world size 1 in this process: its collectives on the card
+    (all_reduce, all_gather, reduce_scatter, all_to_all), then a
+    ShardedDenseAdj and a HaloAdj over a 1x1 mesh through the layer API on
+    the yelp graph, one propagation each against DenseAdj (int8: exactly)
+    and EllAdj (within 2e-5). The process group is taken down after."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from selfrec_tpu_torch.data.interaction import Interaction
+    from selfrec_tpu_torch.ops import dense_dual, ell_gather, spmm_dense
+    from selfrec_tpu_torch.ops.graph import norm_adj_from_scipy, spmm
+    from selfrec_tpu_torch.parallel import dense_shard, halo
+    from selfrec_tpu_torch.parallel import mesh as mesh_lib
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        x = torch.arange(8, dtype=torch.float32, device="cuda")
+        y = x.clone()
+        dist.all_reduce(y)
+        ag = torch.empty_like(x)
+        dist.all_gather_into_tensor(ag, x)
+        rs = torch.empty_like(x)
+        dist.reduce_scatter_tensor(rs, x)
+        a2a = torch.empty_like(x)
+        dist.all_to_all_single(a2a, x)
+        if not all(torch.equal(t, x) for t in (y, ag, rs, a2a)):
+            raise RuntimeError("NCCL at world size 1: a collective changed its input")
+        mesh = mesh_lib.build_mesh(1, 1)
+        log(f"[scale-out] NCCL at world size 1: {mesh!r}; all_reduce, all_gather, "
+            f"reduce_scatter and all_to_all on the card give their input back")
+        inter = Interaction(graph_conf("LightGCN", {}), *data)
+        mat = inter.norm_adj
+        eu, ei, w = spmm_dense.bipartite_blocks(mat.tocoo(), inter.user_num)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn((mat.shape[0], 64), generator=gen, device="cuda")
+        single = spmm_dense.dense_adj_from_edges(eu, ei, w, inter.user_num, inter.item_num,
+                                                 device="cuda")
+        ref = spmm(single, x)
+        del single
+        sharded = dense_shard.build_sharded_dense(eu, ei, w, inter.user_num, inter.item_num,
+                                                  mesh, device="cuda")
+        dense_dual.dual_matmul.launches = 0
+        out = spmm(sharded, x)
+        torch.cuda.synchronize()
+        k1_paths["sharded_1x1_nccl"] = dense_dual.dual_matmul.launches
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"1x1 ShardedDenseAdj: differs from DenseAdj by "
+                               f"{float((out - ref).abs().max())}")
+        log(f"[scale-out] 1x1 mesh, yelp graph: {sharded!r} equals DenseAdj int8 exactly "
+            f"({k1_paths['sharded_1x1_nccl']} K1 launch)")
+        del sharded, ref, out
+        torch.cuda.empty_cache()
+        ell = norm_adj_from_scipy(mat, device="cuda")
+        ref = spmm(ell, x)
+        hadj = halo.halo_from_ell(ell, mesh)
+        ell_gather.ell_gather_sum.launches = 0
+        out = spmm(hadj, x)
+        torch.cuda.synchronize()
+        k2_paths["halo_1x1_nccl"] = ell_gather.ell_gather_sum.launches
+        err = float((out - ref).abs().max())
+        if not torch.allclose(out, ref, rtol=K2_RTOL, atol=K2_ATOL):
+            raise RuntimeError(f"1x1 HaloAdj: differs from EllAdj by {err}")
+        log(f"[scale-out] 1x1 mesh, yelp graph: {hadj!r} equals EllAdj within {K2_RTOL} "
+            f"(max |err| {err:.3g}; {k2_paths['halo_1x1_nccl']} K2 launch)")
+    finally:
+        dist.destroy_process_group()
+        mesh_lib._GROUPS.clear()
+
+
+def nccl_two_ranks_one_card():
+    """Two NCCL ranks on the one card: NCCL refuses a second rank on a
+    device it already holds. Records what it says; not a gate."""
+    code = (
+        "import datetime, os, torch, torch.distributed as dist\n"
+        "torch.cuda.set_device(0)\n"
+        "dist.init_process_group('nccl', init_method=f\"tcp://127.0.0.1:{os.environ['PORT']}\","
+        " rank=int(os.environ['RANK']), world_size=2,"
+        " timeout=datetime.timedelta(seconds=30))\n"
+        "t = torch.ones(4, device='cuda')\n"
+        "dist.all_reduce(t)\n"
+        "torch.cuda.synchronize()\n"
+        "print('all_reduce gave', t.tolist(), flush=True)\n")
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, "-c", code], env=dict(os.environ, PORT=port,
+                                                                      RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=90)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs.append(p.communicate()[0] + "\n(timed out after 90 s)")
+    said = [line for out in outs for line in out.splitlines()
+            if "Duplicate GPU" in line or "all_reduce gave" in line or "Error" in line]
+    log(f"[scale-out] two NCCL ranks on one card: return codes "
+        f"{[p.returncode for p in procs]}; " + (" | ".join(said[:4])[:600] or
+                                                 outs[0][-400:].replace("\n", " | ")))
+
+
+def replica_gate(tag, model):
+    """The data replicas of every shard bit-equal, and the full params
+    (gathered over model) equal on every rank."""
+    import torch
+
+    from selfrec_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = model.mesh
+    shards = torch.cat([v.detach().reshape(-1) for v in model.params.values()])
+    full = torch.cat([v.reshape(-1) for v in model.gather_leaves(
+        {k: v.detach() for k, v in model.params.items()}).values()])
+    for what, t, axis in (("shards", shards, mesh_lib.DATA_AXIS), ("full params", full,
+                                                                  mesh_lib.GRID)):
+        got = mesh_lib.all_gather(t[None], mesh, axis)
+        if not all(torch.equal(got[0], g) for g in got[1:]):
+            raise RuntimeError(f"{tag}: the {what} differ between the ranks of {axis}")
+    if not bool(torch.isfinite(full).all()):
+        raise RuntimeError(f"{tag}: non-finite params")
+    log(f"[scale-out {tag}] replicas bit-equal over data, full params equal on every rank "
+        f"({full.numel()} values)")
+
+
+def comm_per_step(model, adj, width, per_step):
+    """Bytes a rank receives in one step: ``per_step`` propagations over
+    ``adj`` at ``width`` by the layout's own count, plus the params' gathers
+    over model and the gradient sums over the replicas (ring algorithms)."""
+    from selfrec_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = model.mesh
+    nd, nm = mesh.shape[mesh_lib.DATA_AXIS], mesh.shape[mesh_lib.MODEL_AXIS]
+    adj_b = adj.comm_bytes(width)
+    if "fwd" in adj_b:  # a halo layout: forward and transpose plans
+        prop = sum(adj_b["fwd"].values()) + sum(adj_b["bwd"].values())
+        prop = prop * per_step // 2
+    else:
+        prop = sum(adj_b.values()) * per_step
+    sharded = sum(v.numel() * 4 for k, v in model.params.items() if k in model._sharded)
+    rest = sum(v.numel() * 4 for k, v in model.params.items() if k not in model._sharded)
+    params = sharded * (nm - 1)            # gathered before the loss
+    grads = 2 * sharded * (nd - 1) // nd + 2 * rest * (nd * nm - 1) // (nd * nm)
+    return {"propagations": prop, "param_gathers": params, "grad_sums": grads}
+
+
+def k1_slice_rows(tag, model, gen, rank, time_it):
+    """K1 int8 on this rank's (U_pad, i_blk) slice and its kept transpose at
+    the path's widths, exactly against its plain version; on rank 0 with
+    ``time_it`` timed against its bound while rank 1 waits."""
+    import torch
+    import torch.distributed as dist
+
+    from selfrec_tpu_torch.ops import dense_dual
+
+    adj = model.adj
+    for d in (192, 64):
+        xu = torch.randint(-127, 128, (adj.u_pad, d), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        xi = torch.randint(-127, 128, (adj.i_blk, d), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        ou, oi = dense_dual.dual_matmul(adj.b, xu, xi, adj.bt)
+        pu, pi = dense_dual.dual_matmul_plain(adj.b, xu, xi)
+        if not (torch.equal(ou, pu) and torch.equal(oi, pi)):
+            raise RuntimeError(f"{tag} rank {rank}: K1 on its slice differs from the plain "
+                               f"version at D={d}")
+        del ou, oi, pu, pi
+    log(f"[scale-out {tag}] rank {rank}: K1 int8 on its slice {tuple(adj.b.shape)} exact "
+        f"at D 192 and 64")
+    torch.cuda.empty_cache()
+    dist.barrier()
+    row = None
+    if time_it and rank == 0:
+        row = k1_case(f"rank slice {tag}", adj.b, adj.bt, 192, gen)
+    dist.barrier()
+    return row
+
+
+def k2_slice_rows(tag, model, gen, rank, time_it):
+    """K2 on this rank's halo layout at the path's width (SGL's three views
+    packed), within 2e-5 of its plain version; timed on rank 0 while rank 1
+    waits."""
+    import torch
+    import torch.distributed as dist
+
+    from selfrec_tpu_torch.ops import ell_gather
+    from selfrec_tpu_torch.parallel.halo import _w_pad
+
+    loc = model._view_template.fwd
+    w_stack = torch.stack([model._w_clean, model.aux["w1"], model.aux["w2"]])
+    w = _w_pad(w_stack).index_select(1, loc.slot_edge).reshape(
+        3, loc.vmax, loc.layout.k).contiguous()
+    x = torch.randn((loc.r_src + loc.grid[1] * loc.h, 192), generator=gen, device="cuda")
+    out = ell_gather.ell_gather_sum(loc.layout, w, x)
+    ref = ell_gather.ell_gather_sum_plain(loc.layout, w, x)
+    if not torch.allclose(out, ref, rtol=K2_RTOL, atol=K2_ATOL):
+        raise RuntimeError(f"{tag} rank {rank}: K2 on its halo layout differs from the "
+                           f"plain version by {float((out - ref).abs().max())}")
+    log(f"[scale-out {tag}] rank {rank}: K2 on its halo layout (Vmax {loc.vmax}, H {loc.h}, "
+        f"{x.shape[0]} source rows) within {K2_RTOL}, max |err| "
+        f"{float((out - ref).abs().max()):.3g}")
+    dist.barrier()
+    row = None
+    if time_it and rank == 0:
+        row = k2_case(f"rank halo {tag}", loc.layout, w, x)
+    dist.barrier()
+    return row
+
+
+def int8_col_rel_gate(tag, model, rank):
+    """The JAX package's int8 gate (tests/test_dense_shard.py:218-236) on
+    the card over this mesh: on its shapes and inputs (41 users, 57 items,
+    500 draws of edges, D 8, standard normal x) one sharded int8
+    propagation within 0.02 of each column's largest value of the exact
+    edge-list product. On the yelp graph, with the model's ego embeddings
+    as x, where the single-device int8 block itself reads above 0.02, the
+    sharded propagation's measure on every rank within
+    ``1 + INT8_SHARDED_MARGIN`` of the block's (built on rank 0)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from selfrec_tpu_torch.ops.graph import spmm
+    from selfrec_tpu_torch.ops.spmm_dense import dense_adj_from_edges
+    from selfrec_tpu_torch.parallel.dense_shard import build_sharded_dense
+
+    def col_rel(out, eu, ei, w, x, n_users):
+        xu, xi = x[:n_users].double(), x[n_users:].double()
+        w = w.double()[:, None]
+        ref = torch.cat([torch.zeros_like(xu).index_add_(0, eu, w * xi[ei]),
+                         torch.zeros_like(xi).index_add_(0, ei, w * xu[eu])])
+        return float(((out.double() - ref).abs()
+                      / ref.abs().amax(0, keepdim=True).clamp_min(1e-6)).max())
+
+    rng = np.random.default_rng(7)
+    u, i = 41, 57
+    eu = rng.integers(0, u, 500)
+    ei = rng.integers(0, i, 500)
+    _, idx = np.unique(eu.astype(np.int64) * i + ei, return_index=True)
+    eu, ei = eu[idx], ei[idx]
+    du, di = np.bincount(eu, minlength=u), np.bincount(ei, minlength=i)
+    w = (1.0 / np.sqrt(np.maximum(du[eu] * di[ei], 1))).astype(np.float32)
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal((u + i, 8)),
+                        dtype=torch.float32, device="cuda")
+    small = build_sharded_dense(eu, ei, w, u, i, model.mesh, device="cuda")
+    dev = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    rel = col_rel(spmm(small, x), dev(eu), dev(ei), dev(w), x, u)
+    if rel >= INT8_COL_REL:
+        raise RuntimeError(f"{tag}: int8 propagation on the JAX test's inputs off by {rel} "
+                           f"of a column's largest value (bound {INT8_COL_REL})")
+    adj = model.adj
+    with torch.no_grad():
+        params = model.full_params()
+        x = torch.cat([params["user_emb"], params["item_emb"]])
+    edges = (adj.edge_users, adj.edge_items, adj.edge_w)
+    yelp = col_rel(spmm(adj, x), *edges, x, adj.n_users)
+    single = [None]
+    if rank == 0:
+        block = dense_adj_from_edges(*(e.cpu().numpy() for e in edges), adj.n_users,
+                                     adj.n_items, device="cuda")
+        single[0] = col_rel(spmm(block, x), *edges, x, adj.n_users)
+        del block
+        torch.cuda.empty_cache()
+    dist.broadcast_object_list(single, src=0)
+    single = single[0]
+    if yelp > single * (1 + INT8_SHARDED_MARGIN):
+        raise RuntimeError(f"{tag} rank {rank}: int8 propagation on the yelp graph off by "
+                           f"{yelp} of a column's largest value, the single-device block "
+                           f"by {single} (margin {INT8_SHARDED_MARGIN})")
+    log(f"[scale-out {tag}] rank {rank}: int8 propagation on the JAX test's inputs within "
+        f"{rel:.4f} of each column's largest value (bound {INT8_COL_REL}); on the yelp "
+        f"graph {yelp!r} sharded against {single!r} on one device (margin "
+        f"{INT8_SHARDED_MARGIN})")
+
+
+def in_rank_order(rank, fn):
+    """``fn()`` on each rank in turn, rank 0 first, while the others wait,
+    so that what one rank times has the card to itself; returns this
+    rank's result."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def f32_mesh_gate(rank, mesh, gen):
+    """SimGCL in the f32 dense mode (K1's float kernel) on a small graph:
+    three sharded steps against the single-device card run, on rank 0,
+    within rtol 2e-4 / atol 2e-5; then K1's float kernel, its backward and
+    its operand pass on each rank's slice of that run at D 192 in f32
+    against their plain versions (:func:`k1_float_case`), timed on rank 0.
+    Returns the sharded run's K1 float launches and rank 0's row."""
+    import torch
+
+    from selfrec_tpu_torch.models.graph.simgcl import SimGCL
+    from selfrec_tpu_torch.ops import dense_dual
+    from selfrec_tpu_torch.utils.synth import synth_graph_mapped
+
+    train, test = synth_graph_mapped(600, 900, 12000, seed=5)
+    runs = {}
+    with knobs(SELFREC_TPU_DENSE="1", SELFREC_TPU_DENSE_DTYPE="float32"):
+        for name, extra in (("sharded", {"mesh": mesh, "distributed": True}),
+                            ("single", {})):
+            if name == "single" and rank != 0:
+                continue
+            model = SimGCL(graph_conf("SimGCL", SIMGCL, **{"batch.size": 256, **extra}),
+                           train, test, device="cuda")
+            model.build()
+            users, items, masks = model.epoch_batches(0)
+            model.aux = model.epoch_setup(0)
+            dense_dual.float_products.launches = 0
+            losses = model.train_batches(users[:3], items[:3], masks[:3])
+            torch.cuda.synchronize()
+            runs[name] = (model.gather_leaves({k: v.detach() for k, v in model.params.items()}),
+                          losses, dense_dual.float_products.launches, model.adj)
+    launches = runs["sharded"][2]
+    if launches != 3 * 2 * SIMGCL["n_layer"]:
+        raise RuntimeError(f"f32 mesh gate: {launches} K1 float launches in 3 steps")
+    if rank == 0:
+        for k, v in runs["single"][0].items():
+            got = runs["sharded"][0][k]
+            if not torch.allclose(got, v, rtol=PARALLEL_RTOL, atol=PARALLEL_ATOL):
+                raise RuntimeError(f"f32 mesh gate: {k} after 3 sharded steps differs from "
+                                   f"the single-device run by {float((got - v).abs().max())}")
+        log(f"[scale-out f32 {mesh}] {runs['sharded'][3]!r}: 3 steps equal the single-device "
+            f"card run within rtol {PARALLEL_RTOL} / atol {PARALLEL_ATOL} (losses "
+            f"{runs['sharded'][1].tolist()} vs {runs['single'][1].tolist()})")
+    adj = runs["sharded"][3]
+    row = in_rank_order(rank, lambda: k1_float_case(
+        "rank slice f32 SimGCL 1x2", adj.b, adj.bt, 192, torch.float32, gen, grad=True))
+    log(f"[scale-out f32 {mesh}] rank {rank}: K1 float on its slice {tuple(adj.b.shape)} at "
+        f"D 192, f32: operand pass exact, products and backward within rtol "
+        f"{K1_FLOAT_RTOL} / atol {K1_FLOAT_ATOL} (max |err| {row['max_abs_err']:.3g})")
+    return launches, row if rank == 0 else None
+
+
+def scale_out_rank(rank, port, out_path):
+    """One of two ranks on the one card, over gloo: SimGCL int8x8 at yelp
+    scale on 1x2 and 2x1, the f32 gate, SGL's ELL arm on 1x2 (HaloAdj),
+    SASRec at bench widths on 1x2 and MHCN on ShardedDenseMat at quarter
+    douban. Writes its launch counts, timings and kernel rows to
+    ``out_path`` as JSON."""
+    import torch
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
+                      RANK=str(rank), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE="2",
+                      SELFREC_TPU_DENSE_DTYPE="int8")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from selfrec_tpu_torch.device import disable_tf32
+    from selfrec_tpu_torch.models import get_model_class
+    from selfrec_tpu_torch.models.graph.mhcn import MHCN
+    from selfrec_tpu_torch.models.graph.sgl import SGL
+    from selfrec_tpu_torch.models.graph.simgcl import SimGCL
+    from selfrec_tpu_torch.ops import dense_dual, ell_gather
+    from selfrec_tpu_torch.parallel import distributed
+    from selfrec_tpu_torch.parallel.dense_shard import ShardedDenseAdj, ShardedDenseMat
+    from selfrec_tpu_torch.parallel.halo import HaloAdj
+    from selfrec_tpu_torch.utils.synth import synth_graph_mapped, synth_sequences
+
+    disable_tf32()
+    # two ranks on one card: the start-up shares it and takes gloo
+    distributed.maybe_initialize({"distributed": True}, torch.device("cuda"))
+    res = {"k1": {}, "k1f": {}, "k2": {}, "rows": {"k1f": []}, "ms": {}, "comm": {}}
+    gen = torch.Generator(device="cuda").manual_seed(11 + rank)
+    data = synth_graph_mapped()
+    no_kernel = (dense_dual.dual_matmul, dense_dual.float_products, ell_gather.ell_gather_sum)
+
+    # (a) SimGCL int8x8 at yelp2018 scale on 1x2 and 2x1 ----------------------------
+    for nd, nm in ((1, 2), (2, 1)):
+        tag = f"SimGCL int8x8 {nd}x{nm}"
+        set_layout(True)
+        t0 = time.time()
+        model = SimGCL(graph_conf("SimGCL", SIMGCL, mesh={"data": nd, "model": nm},
+                                  distributed=True), *data, device="cuda")
+        model.build()
+        torch.cuda.synchronize()
+        if not isinstance(model.adj, ShardedDenseAdj):
+            raise RuntimeError(f"{tag}: {model.adj!r}")
+        log(f"[setup] rank {rank} {tag}: {model.adj!r}, {time.time() - t0:.1f} s")
+        row = k1_slice_rows(f"{nd}x{nm}", model, gen, rank, time_it=(nd, nm) == (1, 2))
+        if row is not None:
+            res["rows"]["k1"] = row
+        if (nd, nm) == (1, 2):
+            # K1's float kernel on the yelp slice (the f32 mode's path at this
+            # scale), each rank against the plain version, timed on rank 0
+            adj = model.adj
+            row = in_rank_order(rank, lambda: k1_float_case(
+                "rank slice yelp 1x2", adj.b, adj.bt, 192, torch.float32, gen))
+            log(f"[scale-out {tag}] rank {rank}: K1 float on its slice at D 192, f32, within "
+                f"rtol {K1_FLOAT_RTOL} / atol {K1_FLOAT_ATOL} (max |err| "
+                f"{row['max_abs_err']:.3g})")
+            if rank == 0:
+                res["rows"]["k1f"].append(row)
+            del adj
+            torch.cuda.empty_cache()
+        int8_col_rel_gate(tag, model, rank)
+        key = f"sharded_simgcl_{nd}x{nm}"
+        res["k1"][key + "_train"], res["ms"][key + "_step"] = train_path(
+            tag, model, dense_dual.dual_matmul, N_SHORT_BATCHES,
+            per_step=2 * model.n_layers, profile_steps=3 if nm > 1 else 0)
+        t0 = time.time()
+        res["k1"][key + "_eval"] = eval_path(tag, model, dense_dual.dual_matmul)
+        res["ms"][key + "_eval"] = 1e3 * (time.time() - t0)
+        res["comm"][key] = comm_per_step(model, model.adj, 3 * 64, 2 * model.n_layers)
+        if (model._sharded_topk_impl() is not None) != (nm > 1):
+            raise RuntimeError(f"{tag}: the sharded top-k is on only with a model axis")
+        log(f"[scale-out {tag}] sharded top-k: {nm > 1}; bytes a rank receives a step: "
+            f"{res['comm'][key]}")
+        replica_gate(tag, model)
+        del model
+        torch.cuda.empty_cache()
+
+    res["k1f"]["sharded_simgcl_f32_small_train"], row = f32_mesh_gate(
+        rank, {"data": 1, "model": 2}, gen)
+    if row is not None:
+        res["rows"]["k1f"].append(row)
+
+    # (b) SGL's ELL arm with model 2: HaloAdj, K2 on every rank ----------------------
+    set_layout(False)
+    model = SGL(graph_conf("SGL", SGL_CONF, mesh={"data": 1, "model": 2}, distributed=True),
+                *data, device="cuda")
+    model.build()
+    if not (isinstance(model.adj, HaloAdj) and isinstance(model._view_template, HaloAdj)):
+        raise RuntimeError(f"SGL 1x2: {model.adj!r}, {model._view_template!r}")
+    log(f"[setup] rank {rank} SGL ELL 1x2: {model._view_template!r}")
+    model.aux = model.epoch_setup(0)
+    row = k2_slice_rows("1x2", model, gen, rank, time_it=True)
+    if row is not None:
+        res["rows"]["k2"] = row
+    res["k2"]["halo_sgl_1x2_train"], res["ms"]["halo_sgl_1x2_step"] = train_path(
+        "SGL ELL 1x2", model, ell_gather.ell_gather_sum, N_SHORT_BATCHES,
+        per_step=2 * model.n_layers, profile_steps=3)
+    res["k2"]["halo_sgl_1x2_eval"] = eval_path("SGL ELL 1x2", model, ell_gather.ell_gather_sum)
+    res["comm"]["halo_sgl_1x2"] = comm_per_step(model, model._view_template, 3 * 64,
+                                                2 * model.n_layers)
+    log(f"[scale-out SGL ELL 1x2] bytes a rank receives a step (the template at P = 3): "
+        f"{res['comm']['halo_sgl_1x2']}")
+    replica_gate("SGL ELL 1x2", model)
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) SASRec at bench widths on 1x2 ---------------------------------------------
+    train, test = synth_sequences()
+    model = get_model_class("SASRec")(seq_conf("SASRec", SEQ_CONF["SASRec"],
+                                               mesh={"data": 1, "model": 2},
+                                               distributed=True), train, test, device="cuda")
+    model.build()
+    idx, row_mask = model.epoch_batches(0)
+    for c in no_kernel:
+        c.launches = 0
+    torch.cuda.synchronize()
+    first = model.train_batches(idx[:1], row_mask[:1])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    losses = torch.cat([first, model.train_batches(idx[1:6], row_mask[1:6])])
+    torch.cuda.synchronize()
+    res["ms"]["sasrec_1x2_step"] = 1e3 * (time.time() - t0) / 5
+    if not bool(torch.isfinite(losses).all()) or any(c.launches for c in no_kernel):
+        raise RuntimeError(f"SASRec 1x2: losses {losses.tolist()}, or a kernel launched")
+    log(f"[train SASRec 1x2] 6 batches x {model.batch_size}: loss {float(losses[0]):.6f} -> "
+        f"{float(losses[-1]):.6f}, steps 2..6: {res['ms']['sasrec_1x2_step']:.1f} ms/step; "
+        f"sharded params {sorted(model._sharded)}")
+    replica_gate("SASRec 1x2", model)
+    del model
+    torch.cuda.empty_cache()
+
+    # (d) MHCN on ShardedDenseMat at quarter douban ---------------------------------
+    with knobs(SELFREC_TPU_DENSE="1", SELFREC_TPU_DENSE_DTYPE=None):
+        model = social_model(MHCN, "MHCN", MHCN_CONF, douban_data(div=4),
+                             mesh={"data": 1, "model": 2}, distributed=True)
+    if not all(isinstance(a, ShardedDenseMat) for a in model.H + [model.R, model.Rt]):
+        raise RuntimeError("MHCN 1x2: not every adjacency is a ShardedDenseMat")
+    res["k1"]["sharded_mhcn_1x2_train"], res["ms"]["sharded_mhcn_1x2_step"] = train_path(
+        "MHCN ShardedDenseMat 1x2", model, no_kernel, 5, per_step=0)
+    replica_gate("MHCN 1x2", model)
+    del model
+
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def scale_out_phases(data, k1_paths, k1f_paths, k1_rows, k1f_rows, k2_paths, k2_rows):
+    """NCCL at world size 1 in this process, NCCL's refusal of two ranks on
+    one card, then two gloo ranks on the card (:func:`scale_out_rank`) as
+    subprocesses, each with a timeout: a rank that fails or times out fails
+    the script. Adds the sharded paths' launches (both ranks' counts
+    summed) and the rank-slice kernel rows."""
+    import tempfile
+
+    nccl_world_one_phase(data, k1_paths, k2_paths)
+    nccl_two_ranks_one_card()
+    port = free_port()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--scale-out-rank", str(r), str(port), outs[r]],
+                                  stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(2)]
+        failed = []
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, SCALE_OUT_TIMEOUT_S - (time.time() - t0)))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} timed out after {SCALE_OUT_TIMEOUT_S} s")
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for r, (p, f) in enumerate(zip(procs, logs)):
+            f.seek(0)
+            for line in f.read().splitlines():
+                log(f"[rank {r}] {line}")
+            f.close()
+            if p.returncode != 0:
+                failed.append(f"rank {r} exited with {p.returncode}")
+        if failed:
+            raise RuntimeError("scale-out ranks: " + "; ".join(failed))
+        res = []
+        for path in outs:
+            with open(path) as f:
+                res.append(json.load(f))
+    log(f"[scale-out] two gloo ranks on one card: {time.time() - t0:.1f} s; ms/step "
+        f"and ms/eval (rank 0): {res[0]['ms']}")
+    for key, paths in (("k1", k1_paths), ("k1f", k1f_paths), ("k2", k2_paths)):
+        for path in res[0][key]:
+            paths[path] = res[0][key][path] + res[1][key][path]
+    for path in ("sharded_simgcl_1x2_train", "sharded_simgcl_2x1_train",
+                 "sharded_simgcl_1x2_eval", "sharded_simgcl_2x1_eval"):
+        if k1_paths[path] <= 0:
+            raise RuntimeError(f"scale-out: no K1 launch on {path}")
+    if k2_paths["halo_sgl_1x2_train"] <= 0 or k1f_paths["sharded_simgcl_f32_small_train"] <= 0:
+        raise RuntimeError("scale-out: no K2 or K1 float launch on the sharded paths")
+    k1_rows.append(res[0]["rows"]["k1"])
+    k1f_rows.extend(res[0]["rows"]["k1f"])
+    k2_rows.append(res[0]["rows"]["k2"])
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--scale-out-rank"]:
+        return scale_out_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     os.environ["SELFREC_TPU_DENSE_DTYPE"] = "int8"
     from selfrec_tpu_torch.device import disable_tf32
@@ -2271,6 +2866,9 @@ def main():
     sequential_phases({"K1 int8": (dense_dual.dual_matmul, k1_paths),
                        "K1 float": (k1_float, k1f_paths),
                        "K2": (ell_gather.ell_gather_sum, k2_paths)})
+
+    # scale-out: NCCL at world size 1, then two gloo ranks sharing the card ----
+    scale_out_phases(data, k1_paths, k1f_paths, k1_rows, k1f_rows, k2_paths, k2_rows)
 
     k1_main = next(r for r in k1_rows if r["tag"] == "yelp" and r["shape"][2] == 192)
     k1f_main = next(r for r in k1f_rows if r["tag"] == "yelp" and r["shape"][2] == 64

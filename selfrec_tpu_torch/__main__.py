@@ -2,8 +2,11 @@
 
     python -m selfrec_tpu_torch --conf conf/SimGCL.yaml --set max.epoch=5
     python -m selfrec_tpu_torch --model SimGCL --device cpu
+    torchrun --nproc-per-node 2 -m selfrec_tpu_torch --conf conf/SimGCL.yaml \
+        --set distributed=true --set mesh.model=2
 
-Runs on ``cuda`` unless ``--device`` says otherwise.
+Runs on ``cuda`` unless ``--device`` says otherwise; under torchrun each
+process on ``cuda:LOCAL_RANK``.
 """
 
 from __future__ import annotations

@@ -15,8 +15,16 @@ way over padded sequence batches. Everything runs on one explicit
 :mod:`selfrec_tpu_torch.utils.checkpoint`) and ``profile.dir`` (a
 ``torch.profiler`` trace of one epoch) act as in the JAX package
 (base.py:624-690); the sequential trainer, like the JAX package's, has no
-profiler hook. Its mesh and multi-process keys raise at construction
-(:func:`refuse_unported_keys`).
+profiler hook.
+
+``mesh: {data: D, model: M}`` and ``distributed: true`` run the trainers
+over a (data, model) mesh of one process per device
+(:mod:`selfrec_tpu_torch.parallel`). Each rank keeps its row block of the
+row-sharded params (:func:`~selfrec_tpu_torch.parallel.mesh.shard_params`)
+and the sharded adjacency's slice; every rank gathers the params over
+``model`` and computes the same loss, the propagations run sharded, and the
+gradients are averaged over the replicas before Adam, so that they stay
+bit-identical.
 """
 
 from __future__ import annotations
@@ -36,34 +44,10 @@ from selfrec_tpu_torch.device import resolve_device
 from selfrec_tpu_torch.ops import ranking, sampling, seq_sampling
 from selfrec_tpu_torch.ops.init import xavier_uniform
 from selfrec_tpu_torch.ops.precision import set_compute_dtype
+from selfrec_tpu_torch.parallel import distributed
+from selfrec_tpu_torch.parallel import mesh as mesh_lib
 from selfrec_tpu_torch.utils import metrics
 from selfrec_tpu_torch.utils.logger import Log
-
-
-def refuse_unported_keys(conf, device: torch.device):
-    """Raise NotImplementedError, naming ROADMAP.md, for a config key that
-    the JAX package acts on and the port does not: a ``mesh`` of more than
-    one device (base.py:341-356) and ``distributed`` on (session.py:18-25),
-    ROADMAP §1.8. A 1x1 mesh is the JAX package's single-device path and is
-    allowed; an absent size takes the devices left, as ``build_mesh``
-    does."""
-    if conf.contain("mesh"):
-        m = conf["mesh"] or {}
-        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-        n_data = int(m.get("data", 0)) or None
-        n_model = int(m.get("model", 0)) or None
-        if n_data is None:
-            n_data = max(1, n_dev // (n_model or 1))
-        if n_model is None:
-            n_model = max(1, n_dev // n_data)
-        if n_data * n_model > 1:
-            raise NotImplementedError(
-                f"config key 'mesh': a {n_data}x{n_model} mesh is not ported "
-                "(ROADMAP.md §1.8); the port runs on one device")
-    if conf.get("distributed"):
-        raise NotImplementedError(
-            "config key 'distributed': multi-process runs are not ported "
-            "(ROADMAP.md §1.8)")
 
 
 class Recommender:
@@ -74,8 +58,9 @@ class Recommender:
 
     def __init__(self, conf, training_set, test_set, device=None, **kwargs):
         self.config = conf
-        self.device = resolve_device(device)
-        refuse_unported_keys(conf, self.device)
+        device = resolve_device(device)
+        distributed.maybe_initialize(conf, device)
+        self.device = distributed.rank_device(device)
         self.model_name = conf["model"]["name"]
         self.ranking_topns = conf["item.ranking.topN"]
         self.emb_size = int(conf["embedding.size"])
@@ -220,15 +205,37 @@ class GraphRecommender(_FastEvalMixin, Recommender):
     def current_embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.user_emb, self.item_emb
 
+    def _sharded_topk_impl(self):
+        """The per-shard top-k and merge when items split over a model axis
+        of more than one rank (base.py:196-214); None otherwise, and when
+        the items do not divide by the model size or a slice is shorter
+        than max_N."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is None or mesh.shape[mesh_lib.MODEL_AXIS] <= 1:
+            return None
+        n_items = self.data.item_num
+        n_shards = mesh.shape[mesh_lib.MODEL_AXIS]
+        if n_items % n_shards != 0 or self.max_N > n_items // n_shards:
+            return None
+        impl = getattr(self, "_sharded_topk_fn", None)
+        if impl is None:
+            from selfrec_tpu_torch.parallel.topk import make_sharded_topk
+
+            impl = self._sharded_topk_fn = make_sharded_topk(mesh, n_items, self.max_N)
+        return impl
+
     def test(self) -> Dict[str, list]:
         user_emb, item_emb = self.current_embeddings()
         return ranking.rec_list_from_embeddings(
             self.data, user_emb, item_emb, self.max_N,
-            block_size=self.eval_block_size)
+            block_size=self.eval_block_size, topk_impl=self._sharded_topk_impl())
 
     def _fast_measure(self):
         """Id-array eval: device top-k -> vectorized metrics over int ids,
-        exact-equal to the string path (base.py:226-244)."""
+        exact-equal to the string path (base.py:226-244). The sharded top-k
+        keeps the rec-list route, as in the JAX package."""
+        if self._sharded_topk_impl() is not None:
+            return super()._fast_measure()
         user_emb, item_emb = self.current_embeddings()
         if user_emb is None or item_emb is None:
             return super()._fast_measure()
@@ -252,22 +259,86 @@ class GraphRecommender(_FastEvalMixin, Recommender):
             self.rec_output.append(line + "\n")
         current_time = strftime("%Y-%m-%d %H-%M-%S", localtime(time()))
         out_dir = self.output
+        # one writer under a process group: every rank holds the same lists
+        writes = distributed.is_main_process()
         file_name = f"{self.model_name}@{current_time}-top-{self.max_N}items.txt"
-        io.write_file(out_dir, file_name, self.rec_output)
+        if writes:
+            io.write_file(out_dir, file_name, self.rec_output)
         print("The result has been output to ", abspath(out_dir), ".")
         file_name = f"{self.model_name}@{current_time}-performance.txt"
         self.result = metrics.ranking_evaluation(self.data.test_set, rec_list, self.topN)
         self.model_log.add("###Evaluation Results###")
         self.model_log.add(self.result)
-        io.write_file(out_dir, file_name, self.result)
+        if writes:
+            io.write_file(out_dir, file_name, self.result)
         print(f"The result of {self.model_name}:\n{''.join(self.result)}")
 
 
 class _TrainStateMixin:
-    """What both trainers share: Adam over the flat params dict, the
-    per-epoch host RNG, and checkpoint/resume (base.py:572-576, 624-646;
-    the JAX package's sequential trainer borrows the graph trainer's hooks,
-    base.py:908, 925-927)."""
+    """What both trainers share: the mesh, Adam over the flat params dict,
+    the per-epoch host RNG, and checkpoint/resume (base.py:341-356,
+    572-576, 624-646; the JAX package's sequential trainer borrows the
+    graph trainer's hooks, base.py:808-809, 908, 925-927)."""
+
+    mesh = None
+    _sharded: frozenset = frozenset()  # params row-sharded over model
+
+    def _build_mesh(self):
+        """The (data, model) mesh of ``mesh: {data: D, model: M}``, or None
+        (the single-device path) when the key is absent or the mesh has at
+        most one device (base.py:341-356). A mesh above the world raises
+        ``ValueError`` (:func:`~selfrec_tpu_torch.parallel.mesh.build_mesh`);
+        so does a world larger than the mesh, whose extra processes would
+        have nothing to do."""
+        if not self.config.contain("mesh"):
+            return None
+        m = self.config["mesh"] or {}
+        built = mesh_lib.build_mesh(int(m.get("data", 0)) or None,
+                                    int(m.get("model", 0)) or None)
+        if built.size <= 1:
+            return None
+        if built.rank is None or built.size != torch.distributed.get_world_size():
+            raise ValueError(f"{built} does not cover the world of "
+                             f"{torch.distributed.get_world_size()} processes; the "
+                             "port runs one process per device of the mesh")
+        return built
+
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """The params as the model's code reads them: under a mesh the
+        row-sharded leaves gathered over ``model``, differentiable (the
+        backward keeps this rank's rows); ``self.params`` otherwise."""
+        if not self._sharded:
+            return self.params
+        return {k: mesh_lib.gather_rows(v, self.mesh) if k in self._sharded else v
+                for k, v in self.params.items()}
+
+    def gather_leaves(self, tree: Dict[str, torch.Tensor], keys=None) -> Dict[str, torch.Tensor]:
+        """Full copies, with no gradient, of a dict shaped like the params
+        (``keys`` names its leaves in the params' terms when they differ)."""
+        keys = list(tree) if keys is None else keys
+        return {k: (mesh_lib.all_gather(v.detach(), self.mesh, mesh_lib.MODEL_AXIS)
+                    if name in self._sharded and v.dim() == 2 else v)
+                for (k, v), name in zip(tree.items(), keys)}
+
+    def shard_leaves(self, tree: Dict[str, torch.Tensor], keys=None) -> Dict[str, torch.Tensor]:
+        """The inverse of :meth:`gather_leaves`: this rank's row blocks."""
+        keys = list(tree) if keys is None else keys
+        return {k: (mesh_lib.row_block(v, self.mesh).clone()
+                    if name in self._sharded and v.dim() == 2 else v)
+                for (k, v), name in zip(tree.items(), keys)}
+
+    def _optimizer_step(self):
+        """Adam on this rank's params; under a mesh after averaging each
+        gradient over the ranks that hold the same rows: the sharded leaves
+        over ``data``, the replicated ones over the grid."""
+        if self.mesh is not None:
+            sharded = [k in self._sharded for k in self.params]
+            grads = [p.grad for p in self.params.values()]
+            mesh_lib.sync_replicas([g for g, sh in zip(grads, sharded) if sh], self.mesh,
+                                   mesh_lib.DATA_AXIS)
+            mesh_lib.sync_replicas([g for g, sh in zip(grads, sharded) if not sh],
+                                   self.mesh, mesh_lib.GRID)
+        self.optimizer.step()
 
     def make_optimizer(self, params: Dict[str, torch.Tensor]):
         return torch.optim.Adam(list(params.values()), lr=self.lrate,
@@ -281,10 +352,15 @@ class _TrainStateMixin:
         return np.random.default_rng((self.seed, epoch, stream))
 
     def set_params(self, params: Dict[str, torch.Tensor]):
-        """Install ``params`` (copied to the device as trainable leaves) and a
-        fresh optimizer over them."""
-        self.params = {k: v.detach().to(self.device, torch.float32).clone()
-                       .requires_grad_(True) for k, v in params.items()}
+        """Install the full ``params`` (copied to the device as trainable
+        leaves; under a mesh this rank's row blocks of the row-sharded ones,
+        base.py:445-449) and a fresh optimizer over them."""
+        params = {k: v.detach().to(self.device, torch.float32) for k, v in params.items()}
+        if self.mesh is not None:
+            self._sharded = frozenset(k for k, v in params.items()
+                                      if mesh_lib.splits_rows(v, self.mesh))
+            params = mesh_lib.shard_params(params, self.mesh)
+        self.params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
         self.optimizer = self.make_optimizer(self.params)
 
     def _checkpoint_conf(self):
@@ -308,11 +384,16 @@ class _TrainStateMixin:
         return step
 
     def _maybe_checkpoint(self, epoch: int):
+        """Every rank gathers the state; rank 0 writes it."""
         from selfrec_tpu_torch.utils import checkpoint as ckpt
 
         ckpt_dir, interval = self._checkpoint_conf()
         if ckpt_dir and (epoch + 1) % interval == 0:
-            ckpt.save_checkpoint(ckpt_dir, epoch + 1, ckpt.train_state(self))
+            state = ckpt.train_state(self)
+            if distributed.is_main_process():
+                ckpt.save_checkpoint(ckpt_dir, epoch + 1, state)
+            if self.mesh is not None:
+                torch.distributed.barrier()
 
 
 class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
@@ -345,6 +426,7 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
         self.aux: Dict[str, Any] = {}
         self._edges_dev = None
         self._trace = None  # the torch.profiler session profile.dir opened
+        self.mesh = self._build_mesh()
 
     # -- subclass contract ---------------------------------------------------
     def init_params(self, generator) -> Dict[str, torch.Tensor]:
@@ -371,18 +453,69 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
         return {}
 
     def step_update(self, params, aux, batch: Dict[str, torch.Tensor]):
-        """Post-optimizer per-step aux update; default: aux unchanged."""
+        """Post-optimizer per-step aux update; default: aux unchanged.
+        ``params`` are this rank's (row blocks under a mesh): an override
+        that reads them gathers them with :meth:`gather_leaves`."""
         return aux
 
     def make_adj(self, scipy_norm_adj=None):
         """Device adjacency for the unified Laplacian (``data.norm_adj`` by
         default): the dense-bipartite block where ``SELFREC_TPU_DENSE`` and
         the budget allow it, else the ELL layout
-        (:func:`selfrec_tpu_torch.ops.graph.norm_adj_from_scipy`)."""
+        (:func:`selfrec_tpu_torch.ops.graph.norm_adj_from_scipy`). Under a
+        mesh the dense block is sharded over the grid when its slice fits,
+        else the ELL layout becomes a halo layout (base.py:358-384)."""
         from selfrec_tpu_torch.ops.graph import norm_adj_from_scipy
 
         mat = self.data.norm_adj if scipy_norm_adj is None else scipy_norm_adj
+        if self.mesh is not None:
+            sharded = self._try_sharded_dense(mat)
+            if sharded is not None:
+                return sharded
+            return self.shard_adj(norm_adj_from_scipy(mat, device=self.device))
         return norm_adj_from_scipy(mat, self.data.user_num, device=self.device)
+
+    def _try_sharded_dense(self, mat):
+        """The ShardedDenseAdj when the matrix is symmetric-bipartite, the
+        dense gate allows it (``SELFREC_TPU_DENSE``: ``0`` never, ``1``
+        always, ``auto`` on CUDA) and one rank's slice fits the budget;
+        None otherwise (base.py:386-411)."""
+        from selfrec_tpu_torch.ops import spmm_dense
+        from selfrec_tpu_torch.parallel import dense_shard
+
+        dense_mode = os.environ.get("SELFREC_TPU_DENSE", "auto")
+        if dense_mode == "0" or (dense_mode != "1" and self.device.type != "cuda"):
+            return None
+        n_users = self.data.user_num
+        n_items = mat.shape[0] - n_users
+        if (mat.shape[0] != mat.shape[1]
+                or not dense_shard.fits_sharded_dense(n_users, n_items, self.mesh)):
+            return None
+        blocks = spmm_dense.bipartite_blocks(mat.tocoo(), n_users)
+        if blocks is None:
+            return None
+        return dense_shard.build_sharded_dense(*blocks, n_users, n_items, self.mesh,
+                                               device=self.device)
+
+    def shard_adj(self, adj):
+        """An adjacency placed on the mesh (base.py:413-441): a DenseAdj
+        sharded over the grid, a DenseMat row-sharded over it, an EllAdj
+        made a HaloAdj (with a model axis of one rank the data ranks split
+        the virtual rows); a NormAdj, the edge-list fallback, is computed
+        whole on every rank. The adjacency itself without a mesh."""
+        if self.mesh is None:
+            return adj
+        from selfrec_tpu_torch.ops.spmm_dense import DenseAdj, DenseMat
+        from selfrec_tpu_torch.ops.spmm_ell import EllAdj
+        from selfrec_tpu_torch.parallel import dense_shard, halo
+
+        if isinstance(adj, DenseAdj):
+            return dense_shard.sharded_dense_from_dense(adj, self.mesh)
+        if isinstance(adj, DenseMat):
+            return dense_shard.shard_dense_mat(adj, self.mesh)
+        if isinstance(adj, EllAdj):
+            return halo.halo_from_ell(adj, self.mesh)
+        return adj
 
     # -- machinery ------------------------------------------------------------
     def build(self):
@@ -422,9 +555,9 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
         neg = self.sample_negatives(batch["u"])
         full_batch = dict(batch, j=neg, aux=self.aux)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.batch_loss_aux(self.params, full_batch, self.generator)
+        loss, aux = self.batch_loss_aux(self.full_params(), full_batch, self.generator)
         loss.backward()
-        self.optimizer.step()
+        self._optimizer_step()
         with torch.no_grad():
             self.aux = self.step_update(self.params, aux, full_batch)
         return loss.detach()
@@ -465,7 +598,7 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
 
     @torch.no_grad()
     def embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.compute_embeddings(self.params)
+        return self.compute_embeddings(self.full_params())
 
     # -- the profiler hook (base.py:648-666) ----------------------------------
     def _profiler_hook(self, epoch: int, start_epoch: int):
@@ -590,8 +723,9 @@ class SequentialRecommender(_FastEvalMixin, Recommender):
         (base.py:728-766)."""
         seq, pos, seq_len = self._test_windows()
         bs = self.batch_size
+        params = self.full_params()
         tops = [ranking.topk_scores_unmasked(
-                    self.predict_scores(self.params, seq[s:s + bs], pos[s:s + bs],
+                    self.predict_scores(params, seq[s:s + bs], pos[s:s + bs],
                                         seq_len[s:s + bs]), self.max_N)
                 for s in range(0, seq.shape[0], bs)]
         n = len(self.data.original_seq)
@@ -650,6 +784,7 @@ class TorchSequentialRecommender(_TrainStateMixin, SequentialRecommender):
         self.best_params: Optional[Dict[str, torch.Tensor]] = None
         self._train_arrays = self.data.padded_training_arrays(self.max_len)
         self._train_dev = None
+        self.mesh = self._build_mesh()
 
     def init_params(self, generator) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
@@ -681,9 +816,9 @@ class TorchSequentialRecommender(_TrainStateMixin, SequentialRecommender):
         neg = seq_sampling.sample_seq_negatives(
             self.generator, batch["seq"], self.data.item_num, self.n_neg_rounds)
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.batch_loss(self.params, dict(batch, neg=neg), self.generator)
+        loss = self.batch_loss(self.full_params(), dict(batch, neg=neg), self.generator)
         loss.backward()
-        self.optimizer.step()
+        self._optimizer_step()
         return loss.detach()
 
     def train_batches(self, idx: torch.Tensor, row_masks: torch.Tensor) -> torch.Tensor:

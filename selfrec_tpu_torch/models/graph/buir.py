@@ -57,7 +57,15 @@ class BUIR(TorchGraphRecommender):
         self.momentum = float(args.get("tau", 0.995))
         self.n_layers = int(args.get("n_layer", 2))
         self.drop_rate = float(args.get("drop_rate", 0.2))
-        self.adj = self.make_adj()
+        if self.mesh is None:
+            self.adj = self.make_adj()
+        else:
+            # the sharded dense block has no per-step dropout (graph.adj_dropout):
+            # ELL, as a halo layout, under a mesh (buir.py:38-46)
+            from selfrec_tpu_torch.ops.graph import norm_adj_from_scipy
+
+            self.adj = self.shard_adj(norm_adj_from_scipy(self.data.norm_adj,
+                                                          device=self.device))
 
     def init_params(self, generator):
         params = super().init_params(generator)
@@ -68,8 +76,9 @@ class BUIR(TorchGraphRecommender):
     def build(self):
         super().build()
         # the target tables start as copies of the online tables (BUIR.py:66-68)
-        self.aux = {"t_user": self.params["user_emb"].detach().clone(),
-                    "t_item": self.params["item_emb"].detach().clone()}
+        params = self.full_params()
+        self.aux = {"t_user": params["user_emb"].detach().clone(),
+                    "t_item": params["item_emb"].detach().clone()}
 
     def epoch_setup(self, epoch):
         return self.aux  # the target state persists across epochs
@@ -144,6 +153,7 @@ class BUIR(TorchGraphRecommender):
     def step_update(self, params, aux, batch):
         """Momentum update of the batch's valid target rows only
         (BUIR.py:69-75)."""
+        params = self.gather_leaves(params)
         m = self.momentum
         valid = batch["mask"].to(torch.bool)
         u, i = batch["u"], batch["i"]

@@ -18,7 +18,9 @@ plus R and Rᵀ fit ``SELFREC_TPU_DENSE_BUDGET_GB`` together, the motifs are
 built on the device and all five matrices are :class:`DenseMat` (GEMMs
 with f32 sums, no kernel of the port); otherwise the scipy motifs and R
 go to the ELL layout, where every product is one K2 launch forward and
-one backward. There is no mesh, so ``shard_adj`` has no counterpart.
+one backward. Under a mesh ``shard_adj`` row-shards each DenseMat over
+the grid (``ShardedDenseMat``) or makes each ELL layout a ``HaloAdj``
+(mhcn.py:61-80).
 
 The shuffles' permutations come from the step generator
 (:meth:`MHCN.ss_permutations`) or are fed through ``batch_loss(...,
@@ -64,14 +66,15 @@ class MHCN(TorchGraphRecommender):
                                               self.device)
             self.H = []
             while h_dense:  # each f32 block freed once its copy is made
-                self.H.append(DenseMat(h_dense.pop(0).to(_generic_dtype())))
+                self.H.append(self.shard_adj(DenseMat(h_dense.pop(0).to(_generic_dtype()))))
         else:
-            self.H = [norm_adj_from_scipy(h, device=self.device)
+            self.H = [self.shard_adj(norm_adj_from_scipy(h, device=self.device))
                       for h in mhcn_hypergraphs(social, self.data.interaction_mat)]
         r_norm = normalize_graph_mat(self.data.interaction_mat)  # D^-1 R
-        self.R = norm_adj_from_scipy(r_norm, device=self.device, dense_general=dg)
-        self.Rt = norm_adj_from_scipy(r_norm.T.tocsr(), device=self.device,
-                                      dense_general=dg)
+        self.R = self.shard_adj(norm_adj_from_scipy(r_norm, device=self.device,
+                                                    dense_general=dg))
+        self.Rt = self.shard_adj(norm_adj_from_scipy(r_norm.T.tocsr(), device=self.device,
+                                                     dense_general=dg))
 
     def print_model_info(self):
         super().print_model_info()

@@ -62,9 +62,10 @@ class NCL(TorchGraphRecommender):
             return {}
         # E-step on the raw embedding tables each epoch (NCL.py:29-44)
         with torch.no_grad():
-            uc, u2c = kmeans(self.params["user_emb"].detach(), self.k,
+            params = self.full_params()
+            uc, u2c = kmeans(params["user_emb"].detach(), self.k,
                              generator=self.generator)
-            ic, i2c = kmeans(self.params["item_emb"].detach(), self.k,
+            ic, i2c = kmeans(params["item_emb"].detach(), self.k,
                              generator=self.generator)
         return {"user_cent": uc, "user2c": u2c, "item_cent": ic, "item2c": i2c}
 

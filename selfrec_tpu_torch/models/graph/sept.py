@@ -25,6 +25,11 @@ Two arms, as in the JAX package (sept.py:73-131):
   and the social and sharing views the union layout of
   :func:`union_ell_template`, so each pair is one K2 chain at P = 2.
 
+Under a mesh every layout goes through ``shard_adj`` (sept.py:91-104): the
+social blocks to ``ShardedDenseMat``, the bipartite block to
+``ShardedDenseAdj`` (its dropped view refactored), the templates to
+``HaloAdj``.
+
 Pseudo-positives are ranked with ``ranking.topk_lowest_index``: the masked
 columns tie at exactly 0, and ``lax.top_k`` breaks ties by the lowest
 index, which ``torch.topk`` does not promise.
@@ -48,6 +53,7 @@ from selfrec_tpu_torch.ops.ranking import topk_lowest_index
 from selfrec_tpu_torch.ops.sampling import unique_with_mask
 from selfrec_tpu_torch.ops.spmm_dense import (DenseAdj, DenseMat, _generic_dtype,
                                               adj_edge_perm, fits_dense_elems)
+from selfrec_tpu_torch.parallel.dense_shard import ShardedDenseAdj
 
 SS_TEMP = 0.1  # hardcoded in reference SEPT.py:130-131
 
@@ -76,14 +82,15 @@ class SEPT(TorchGraphRecommender):
                 and fits_dense_elems(2 * nu * nu, _generic_dtype())):
             v1, v2 = sept_views_device(bi_social, self.data.interaction_mat, nu,
                                        self.device)
-            self._social_d1 = DenseMat(v1.to(_generic_dtype()))
+            self._social_d1 = self.shard_adj(DenseMat(v1.to(_generic_dtype())))
             del v1
-            self._social_d2 = DenseMat(v2.to(_generic_dtype()))
+            self._social_d2 = self.shard_adj(DenseMat(v2.to(_generic_dtype())))
             del v2
         else:
             views = sept_views(bi_social, self.data.interaction_mat, nu)
-            self._social_template, self._social_w_stack = union_ell_template(
-                list(views), device=self.device)
+            template, self._social_w_stack = union_ell_template(list(views),
+                                                                device=self.device)
+            self._social_template = self.shard_adj(template)
 
         if self._dense_views():
             # the block's edge order (scipy COO of norm_adj) differs from the
@@ -92,9 +99,9 @@ class SEPT(TorchGraphRecommender):
                 adj_edge_perm(self.adj, self.data.edge_users, self.data.edge_items,
                               self.data.item_num), device=self.device).long()
         else:
-            self._view_template = build_bipartite_ell_template(
+            self._view_template = self.shard_adj(build_bipartite_ell_template(
                 self.data.edge_users, self.data.edge_items, nu, self.data.item_num,
-                device=self.device)
+                device=self.device))
             # clean-graph weights over the template (== norm_adj's), so the
             # rec chain shares the template's layout with the dropped view
             self._w_rec = bipartite_renorm_weights(
@@ -104,7 +111,7 @@ class SEPT(TorchGraphRecommender):
         self._joint_phase = False
 
     def _dense_views(self) -> bool:
-        return isinstance(self.adj, DenseAdj)
+        return isinstance(self.adj, (DenseAdj, ShardedDenseAdj))
 
     def print_model_info(self):
         super().print_model_info()

@@ -19,7 +19,10 @@ same masks. Two arms, chosen by the adjacency's layout:
   width-3D chain, one K2 launch per hop forward and one backward;
 - dense: each view is a new int8-factored block per epoch
   (``DenseAdj.refactor_view``), propagated like the clean block (K1 in
-  int8 mode, ``torch.matmul`` in the float modes).
+  every matmul mode).
+
+Under a mesh the dense views are refactored ``ShardedDenseAdj`` slices and
+the ELL template is a ``HaloAdj`` reweighted per epoch.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from selfrec_tpu_torch.ops.graph import (bipartite_renorm_weights,
                                          lightgcn_propagate, spmm, spmm_packed)
 from selfrec_tpu_torch.ops.sampling import unique_with_mask
 from selfrec_tpu_torch.ops.spmm_dense import DenseAdj, adj_edge_perm
+from selfrec_tpu_torch.parallel.dense_shard import ShardedDenseAdj
 
 
 class SGL(TorchGraphRecommender):
@@ -55,16 +59,16 @@ class SGL(TorchGraphRecommender):
         self._w_clean = None
         self._view1 = None
         self._view2 = None
-        if isinstance(self.adj, DenseAdj):
+        if isinstance(self.adj, (DenseAdj, ShardedDenseAdj)):
             # the block's edge order (scipy COO of norm_adj) differs from the
             # dataset's, in which the keep masks are drawn
             self._edge_perm = torch.as_tensor(
                 adj_edge_perm(self.adj, self.data.edge_users, self.data.edge_items,
                               self.data.item_num), device=self.device).long()
         else:
-            self._view_template = build_bipartite_ell_template(
+            self._view_template = self.shard_adj(build_bipartite_ell_template(
                 self.data.edge_users, self.data.edge_items, self.data.user_num,
-                self.data.item_num, device=self.device)
+                self.data.item_num, device=self.device))
             # clean-graph weights over the template (== norm_adj's)
             self._w_clean = bipartite_renorm_weights(
                 self._edge_users_dev, self._edge_items_dev,

@@ -6,9 +6,11 @@ ELL layout (:mod:`selfrec_tpu_torch.ops.spmm_ell`, kernel K2) or the
 edge-list :class:`NormAdj` (a gather and a segment sum in plain torch, as
 the JAX package computes it in XLA), or a static dense matrix of any
 values (:class:`selfrec_tpu_torch.ops.spmm_dense.DenseMat`, a GEMM with f32
-sums). :func:`norm_adj_from_scipy` picks between them by the JAX package's
-own gates (``SELFREC_TPU_DENSE``, ``SELFREC_TPU_ELL``). Not ported yet: the
-sharded layouts (ROADMAP.md §1.8).
+sums), and their sharded counterparts under a mesh
+(:mod:`selfrec_tpu_torch.parallel`: ``ShardedDenseAdj`` on K1, ``HaloAdj``
+on K2, ``ShardedDenseMat``). :func:`norm_adj_from_scipy` picks between the
+single-device layouts by the JAX package's own gates
+(``SELFREC_TPU_DENSE``, ``SELFREC_TPU_ELL``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,10 @@ from selfrec_tpu_torch.ops.spmm_dense import (DenseAdj, DenseMat, dense_mat_spmm
                                                dense_spmm)
 from selfrec_tpu_torch.ops.spmm_ell import (EllAdj, ell_adj_from_edges, ell_spmm,
                                             ell_spmm_packed)
+from selfrec_tpu_torch.parallel.dense_shard import (ShardedDenseAdj, ShardedDenseMat,
+                                                    sharded_dense_mat_spmm,
+                                                    sharded_dense_spmm)
+from selfrec_tpu_torch.parallel.halo import HaloAdj, halo_spmm, halo_spmm_packed
 
 
 class NormAdj:
@@ -65,33 +71,34 @@ def norm_adj_spmm(adj: NormAdj, x: torch.Tensor) -> torch.Tensor:
     return out.index_add(0, adj.dst, contrib)
 
 
+_SPMM = ((DenseAdj, dense_spmm), (EllAdj, ell_spmm), (NormAdj, norm_adj_spmm),
+         (DenseMat, dense_mat_spmm), (ShardedDenseAdj, sharded_dense_spmm),
+         (HaloAdj, halo_spmm), (ShardedDenseMat, sharded_dense_mat_spmm))
+
+
 def spmm(adj, x: torch.Tensor) -> torch.Tensor:
-    """(normalized adjacency) @ (embeddings) over the unified node space."""
-    if isinstance(adj, DenseAdj):
-        return dense_spmm(adj, x)
-    if isinstance(adj, EllAdj):
-        return ell_spmm(adj, x)
-    if isinstance(adj, NormAdj):
-        return norm_adj_spmm(adj, x)
-    if isinstance(adj, DenseMat):
-        return dense_mat_spmm(adj, x)
-    raise NotImplementedError(
-        f"spmm over {type(adj).__name__}: the port propagates DenseAdj, EllAdj, "
-        "NormAdj and DenseMat; the sharded layouts are queued in ROADMAP.md (§1.8)")
+    """(normalized adjacency) @ (embeddings) over the unified node space
+    (graph.py:57-89); a sharded layout takes and gives the full ``x``."""
+    for layout, fn in _SPMM:
+        if isinstance(adj, layout):
+            return fn(adj, x)
+    raise TypeError(f"spmm over {type(adj).__name__}: not an adjacency layout")
 
 
 def spmm_packed(adj, w_edge_stack: torch.Tensor, x: torch.Tensor,
                 n_passes: int) -> torch.Tensor:
     """P propagation passes sharing one layout, packed into one gather chain
     (x is (n, P*D); ``w_edge_stack`` (P, E) per-pass weights in original
-    edge order): one K2 launch per hop for all P passes."""
+    edge order): one K2 launch per hop for all P passes (graph.py:92-104)."""
     if isinstance(adj, EllAdj):
         return ell_spmm_packed(adj, w_edge_stack, x, n_passes)
+    if isinstance(adj, HaloAdj):
+        return halo_spmm_packed(adj, w_edge_stack, x, n_passes)
     raise TypeError(f"packed SpMM needs a shared layout, got {type(adj)}")
 
 
 def supports_packed(adj) -> bool:
-    return isinstance(adj, EllAdj)
+    return isinstance(adj, (EllAdj, HaloAdj))
 
 
 def lightgcn_propagate(adj, ego: torch.Tensor, n_layers: int,
@@ -252,23 +259,29 @@ def adj_dropout(adj, rate, keep: Optional[torch.Tensor] = None,
     scale kept weights by 1 / (1 - rate), with no degree renormalization.
     ``rate`` may be a 0-d tensor.
 
-    A DenseAdj takes :meth:`DenseAdj.dropout_view`; an EllAdj (over its
-    edges in their original order, both directions alike) and a NormAdj are
-    reweighted with ``where(keep, w / (1 - rate), 0)``. ``keep`` (E,) bool
-    over the adjacency's edge order is drawn as ``rand(E) >= rate`` from
-    ``generator`` when not given. Other layouts raise."""
+    A DenseAdj takes :meth:`DenseAdj.dropout_view`; an EllAdj or a HaloAdj
+    (over its edges in their original order, both directions alike) and a
+    NormAdj are reweighted with ``where(keep, w / (1 - rate), 0)``.
+    ``keep`` (E,) bool over the adjacency's edge order is drawn as
+    ``rand(E) >= rate`` from ``generator`` when not given. A
+    ShardedDenseAdj raises ``TypeError``, as in the JAX package
+    (graph.py:340-346): models that drop edges each step keep the ELL or
+    halo layout under a mesh; so does any other layout."""
     if isinstance(adj, DenseAdj):
         return adj.dropout_view(rate, keep=keep, generator=generator)
-    if not isinstance(adj, (EllAdj, NormAdj)):
-        raise NotImplementedError(
+    if isinstance(adj, ShardedDenseAdj):
+        raise TypeError(
+            "adj_dropout on ShardedDenseAdj is unsupported; build per-step dropout "
+            "models on the ELL/halo layout under a mesh")
+    if not isinstance(adj, (EllAdj, HaloAdj, NormAdj)):
+        raise TypeError(
             f"adj_dropout over {type(adj).__name__}: the port drops edges of "
-            "DenseAdj, EllAdj and NormAdj (no model drops a static DenseMat); the "
-            "sharded layouts are queued in ROADMAP.md (§1.8)")
+            "DenseAdj, EllAdj, HaloAdj and NormAdj")
     if keep is None:
         keep = torch.rand(adj.edge_w.shape, generator=generator,
                           device=adj.edge_w.device) >= rate
     w = torch.where(keep, adj.edge_w / (1.0 - rate), torch.zeros_like(adj.edge_w))
-    if isinstance(adj, EllAdj):
+    if isinstance(adj, (EllAdj, HaloAdj)):
         return adj.reweight(w)
     return NormAdj(adj.src, adj.dst, w, adj.n_nodes, adj.sorted_by_dst)
 

@@ -333,9 +333,22 @@ def topk_ids_from_embeddings(data, user_emb, item_emb, k: int,
 
 
 def rec_list_from_embeddings(data, user_emb, item_emb, k: int,
-                             block_size: int = 1024
+                             block_size: int = 1024, topk_impl=None
                              ) -> Dict[str, List[Tuple[str, float]]]:
     """The reference-format rec_list {user_name: [(item_name, score)]} for
-    all test users (ranking.py:336-356)."""
-    plan, scores, ids = _ranked(data, user_emb, item_emb, k, block_size)
-    return assemble_rec_list(data, plan.user_ids, ids, scores)
+    all test users (ranking.py:336-368). ``topk_impl(u_emb, item_emb,
+    rows, cols) -> (scores, ids)`` (the sharded top-k,
+    :mod:`selfrec_tpu_torch.parallel.topk`) takes each block of the plan in
+    place of the all-blocks scan."""
+    if topk_impl is None:
+        plan, scores, ids = _ranked(data, user_emb, item_emb, k, block_size)
+        return assemble_rec_list(data, plan.user_ids, ids, scores)
+    with torch.no_grad():
+        plan = get_eval_plan(data, block_size, user_emb.device)
+        ids_blocks, score_blocks = [], []
+        for uids, rows, cols, valid in plan.blocks:
+            top_scores, top_ids = topk_impl(user_emb[uids], item_emb, rows, cols)
+            ids_blocks.append(top_ids[:valid].cpu().numpy())
+            score_blocks.append(top_scores[:valid].cpu().numpy())
+    return assemble_rec_list(data, plan.user_ids, np.concatenate(ids_blocks),
+                             np.concatenate(score_blocks))

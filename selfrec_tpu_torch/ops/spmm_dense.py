@@ -507,10 +507,9 @@ class _DenseMatSpmm(torch.autograd.Function):
     .astype(x.dtype)`` and its VJP (spmm_dense.py:348-350). Forward: x
     rounded to the block's dtype, f32 sums, f32 out. Backward: the f32
     cotangent times Aᵀ with f32 sums, then rounded to the block's dtype
-    (the gradient of ``x.astype``'s output) and back to f32. For a bf16
-    block the f32 cotangent goes in as :func:`dense_dual.split_f32`'s three
-    exact bf16 pieces side by side, one GEMM of width 3D, recombined in
-    f32; the rounding to bf16 after the sum is what JAX's gradient holds."""
+    (the gradient of ``x.astype``'s output) and back to f32
+    (:func:`mat_t_f32`); the rounding to bf16 after the sum is what JAX's
+    gradient holds."""
 
     @staticmethod
     def forward(ctx, x, a):
@@ -521,15 +520,21 @@ class _DenseMatSpmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (a,) = ctx.saved_tensors
-        g = g.float()
-        if a.dtype == torch.float32:
-            gx = _mm_f32(a.T, g)
-        else:
-            d = g.shape[1]
-            hi, mid, lo = dense_dual.split_f32(g.contiguous())
-            p = _mm_f32(a.T, torch.cat([hi, mid, lo], dim=1))
-            gx = (p[:, :d] + p[:, d:2 * d] * 2.0 ** -8) + p[:, 2 * d:] * 2.0 ** -16
-        return gx.to(a.dtype).to(ctx.x_dtype), None
+        return mat_t_f32(a, g).to(a.dtype).to(ctx.x_dtype), None
+
+
+def mat_t_f32(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """aᵀ @ g for a bf16 or f32 block ``a`` and a cotangent ``g`` taken in
+    f32, with f32 sums, f32 out. For a bf16 block the f32 cotangent goes in
+    as :func:`dense_dual.split_f32`'s three exact bf16 pieces side by side,
+    one GEMM of width 3D, recombined in f32."""
+    g = g.float()
+    if a.dtype == torch.float32:
+        return _mm_f32(a.T, g)
+    d = g.shape[1]
+    hi, mid, lo = dense_dual.split_f32(g.contiguous())
+    p = _mm_f32(a.T, torch.cat([hi, mid, lo], dim=1))
+    return (p[:, :d] + p[:, d:2 * d] * 2.0 ** -8) + p[:, 2 * d:] * 2.0 ** -16
 
 
 def dense_mat_spmm(adj: DenseMat, x: torch.Tensor) -> torch.Tensor:

@@ -117,17 +117,32 @@ def build_ell_layout(src: np.ndarray, dst: np.ndarray, n_rows: int, k: int = 32,
     vdst = np.repeat(nz.astype(np.int32), vrows_per_dst[nz])
     edge_slots = np.empty(e, dtype=np.int32)
     edge_slots[order] = flat
+    layout = layout_from_rows(vidx, vdst, n_rows, k, device)
+    layout = layout._replace(edge_slots=torch.as_tensor(edge_slots, device=device))
+    return layout, order
+
+
+def layout_from_rows(vidx: np.ndarray, vdst: np.ndarray, n_rows: int, k: int,
+                     device="cuda") -> EllLayout:
+    """The layout K2 reads over given virtual rows: ``vidx`` (V*K,) source
+    ids, ``vdst`` (V,) their destination rows, non-decreasing, each below
+    ``n_rows``. Its ``edge_slots`` is empty: the caller that knows the
+    edges sets it (:func:`build_ell_layout`) or weights the slots itself
+    (the halo exchange's per-rank layouts)."""
+    vidx = np.ascontiguousarray(vidx, dtype=np.int32)
+    vdst = np.ascontiguousarray(vdst, dtype=np.int32)
+    row_ptr = np.zeros(n_rows + 1, dtype=np.int32)
+    np.cumsum(np.bincount(vdst, minlength=n_rows), out=row_ptr[1:])
 
     def dev(a):
         return torch.as_tensor(a, device=device)
 
-    item_ptr, item_dst, long_rows, long_ptr = row_work(first_vrow)
-    layout = EllLayout(vidx=dev(vidx), vdst=dev(vdst), n_rows=n_rows, k=k,
-                       edge_slots=dev(edge_slots), row_ptr=dev(first_vrow),
-                       n_src=int(s_src.max()) + 1 if e else 0,
-                       item_ptr=dev(item_ptr), item_dst=dev(item_dst),
-                       long_rows=dev(long_rows), long_ptr=dev(long_ptr), scratch={})
-    return layout, order
+    item_ptr, item_dst, long_rows, long_ptr = row_work(row_ptr)
+    return EllLayout(vidx=dev(vidx), vdst=dev(vdst), n_rows=n_rows, k=k,
+                     edge_slots=dev(np.zeros(0, np.int32)), row_ptr=dev(row_ptr),
+                     n_src=int(vidx.max()) + 1 if len(vidx) else 0,
+                     item_ptr=dev(item_ptr), item_dst=dev(item_dst),
+                     long_rows=dev(long_rows), long_ptr=dev(long_ptr), scratch={})
 
 
 def ell_weights(layout: EllLayout, edge_w: torch.Tensor) -> torch.Tensor:

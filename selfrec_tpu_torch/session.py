@@ -3,7 +3,8 @@
 Equivalent of the reference ``SELFRec`` dispatcher
 (reference/SELFRec.py:4-25): load raw train/test (and social) data once,
 construct the model class from the registry on ``device``, run its
-pipeline.
+pipeline. With ``distributed: true`` the model's constructor joins the
+process group (session.py:18-25) and runs on its rank's device.
 """
 
 from __future__ import annotations

@@ -11,6 +11,12 @@ the CPU, loadable with ``torch.load(weights_only=True)``. An orbax
 checkpoint of the JAX package and one of this module are not
 interchangeable.
 
+Under a mesh the file holds the same full state: every rank gathers its
+row blocks of the params, of Adam's moments and of a sequential model's
+best params over ``model``, rank 0 writes, and on resume every rank reads
+the file and keeps its own rows (checkpoint.py's orbax restore of the
+row-sharded tables, tests/test_checkpoint.py:81-109).
+
 Config surface (optional keys):
     checkpoint.dir:      directory for checkpoints (absent = disabled)
     checkpoint.interval: save every N epochs (default 5)
@@ -86,7 +92,7 @@ def _pack_best(model) -> dict:
             vec[1 + i] = bp[1].get(k, -1.0)
     best = {"perf": vec}
     if getattr(model, "best_params", None) is not None:
-        best["params"] = dict(model.best_params)
+        best["params"] = model.gather_leaves(dict(model.best_params))
     elif getattr(model, "best_user_emb", None) is not None:
         best["user_emb"] = model.best_user_emb
         best["item_emb"] = model.best_item_emb
@@ -99,18 +105,27 @@ def _apply_best(model, best: dict) -> None:
         model.best_performance = [
             int(vec[0]), {k: vec[1 + i] for i, k in enumerate(_METRIC_KEYS)}]
         if "params" in best:
-            model.best_params = _to(best["params"], model.device)
+            model.best_params = model.shard_leaves(_to(best["params"], model.device))
         elif "user_emb" in best:
             model.best_user_emb = best["user_emb"].to(model.device)
             model.best_item_emb = best["item_emb"].to(model.device)
 
 
+def _optimizer_state(model, convert) -> dict:
+    """The optimizer's state_dict with each param's moments passed through
+    ``convert`` (Adam's state maps to params by position)."""
+    sd = model.optimizer.state_dict()
+    keys = list(model.params)
+    return dict(sd, state={i: convert(dict(st), [keys[i]] * len(st))
+                           for i, st in sd["state"].items()})
+
+
 def train_state(model) -> dict:
     """The resumable state of a graph or sequential recommender of the
-    port (a sequential one has no aux)."""
+    port (a sequential one has no aux), full under a mesh too."""
     return {
-        "params": {k: v.detach() for k, v in model.params.items()},
-        "optimizer": model.optimizer.state_dict(),
+        "params": model.gather_leaves({k: v.detach() for k, v in model.params.items()}),
+        "optimizer": _optimizer_state(model, model.gather_leaves),
         "generator": model.generator.get_state(),
         "aux": getattr(model, "aux", {}),
         "best": _pack_best(model),
@@ -118,12 +133,17 @@ def train_state(model) -> dict:
 
 
 def apply_train_state(model, state: dict) -> None:
-    """Install ``state`` into ``model``: params on ``model.device`` with a
-    fresh optimizer over them in the model's key order (Adam's state maps
-    to params by position), then the optimizer's state, the generator's
-    (a CPU byte tensor, also for a CUDA generator), aux and best."""
+    """Install ``state`` into ``model``: params on ``model.device`` (this
+    rank's rows under a mesh) with a fresh optimizer over them in the
+    model's key order (Adam's state maps to params by position), then the
+    optimizer's state, the generator's (a CPU byte tensor, also for a CUDA
+    generator), aux and best."""
     model.set_params({k: state["params"][k] for k in model.params})
-    model.optimizer.load_state_dict(state["optimizer"])
+    keys = list(model.params)
+    opt = state["optimizer"]
+    model.optimizer.load_state_dict(dict(opt, state={
+        i: model.shard_leaves(dict(st), [keys[i]] * len(st))
+        for i, st in opt["state"].items()}))
     model.generator.set_state(state["generator"])
     if state["aux"]:
         model.aux = _to(state["aux"], model.device)

@@ -1,12 +1,16 @@
 """Config keys and eval knobs that the JAX package acts on are never
 silently ignored by the port: each is honoured as there (the checkpoint
-and profiler keys, the eval mask and top-k knobs), or raises and names
-ROADMAP.md (a mesh above one device, ``distributed``, an unknown
-``SELFREC_TPU_EVAL_TOPK``). The eval knobs' cases rank as the JAX package
-does on the same embeddings: ids and metric strings equal."""
+and profiler keys, the mesh, the eval mask and top-k knobs), or raises
+(a mesh above the world, as the JAX package's ``build_mesh`` does;
+``distributed`` without the launcher's environment; an unknown
+``SELFREC_TPU_EVAL_TOPK``, naming ROADMAP.md). The eval knobs' cases rank
+as the JAX package does on the same embeddings: ids and metric strings
+equal. The mesh's runs over several processes are in
+tests/test_torch_parallel.py."""
 
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -57,10 +61,17 @@ def test_checkpoint_and_profiler_keys_are_honoured(tiny_graph_dataset, tmp_path,
 
 
 @pytest.mark.parametrize("mesh", [{"data": 2, "model": 1}, {"data": 1, "model": 2},
-                                  {"data": 4}, {"model": 8}])
+                                  {"data": 2, "model": 2}, {"data": 8, "model": 1}])
 def test_mesh_above_one_device_raises(tiny_graph_dataset, mesh):
-    with pytest.raises(NotImplementedError, match=r"mesh.*ROADMAP\.md §1\.8"):
+    """One process is a world of one device: a larger mesh raises the JAX
+    package's ValueError (mesh.py:51-52), word for word."""
+    from selfrec_tpu.parallel.mesh import build_mesh as jax_build_mesh
+
+    with pytest.raises(ValueError) as theirs:
+        jax_build_mesh(mesh["data"], mesh["model"], devices=jax.devices()[:1])
+    with pytest.raises(ValueError, match="needs more than 1 devices") as mine:
         _model(tiny_graph_dataset, mesh=mesh)
+    assert str(mine.value) == str(theirs.value)
 
 
 @pytest.mark.parametrize("mesh", [{"data": 1, "model": 1}, {"data": 1}, {}, None])
@@ -69,10 +80,32 @@ def test_one_by_one_mesh_is_the_single_device_path(tiny_graph_dataset, mesh):
     assert model.device == torch.device("cpu")
 
 
-def test_distributed_on_raises_and_off_is_allowed(tiny_graph_dataset):
-    with pytest.raises(NotImplementedError, match=r"distributed.*ROADMAP\.md §1\.8"):
+def test_distributed_on_raises_and_off_is_allowed(tiny_graph_dataset, monkeypatch):
+    """``distributed: true`` without torchrun's variables raises and names
+    them; off, the model is built as usual."""
+    for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="distributed.*missing MASTER_ADDR, MASTER_PORT, "
+                                           "WORLD_SIZE, RANK, LOCAL_RANK"):
         _model(tiny_graph_dataset, distributed=True)
     _model(tiny_graph_dataset, distributed=False)
+
+
+@pytest.mark.parametrize("device,local_world,cards,shares", [
+    ("cuda", "2", 1, True), ("cuda", "2", 2, False), ("cuda", None, 1, False),
+    ("cpu", "4", 1, False)])
+def test_more_local_ranks_than_cards_share_them(monkeypatch, device, local_world, cards,
+                                                shares):
+    """A node with more ranks (torchrun's ``LOCAL_WORLD_SIZE``) than cards
+    shares them, and so takes gloo: NCCL refuses two ranks on one card."""
+    from selfrec_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    if local_world is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local_world)
+    assert distributed.shares_cards(torch.device(device)) is shares
 
 
 # -- eval knobs ----------------------------------------------------------------

@@ -8,7 +8,9 @@ and the sequential family end to end on the CPU.
 - The session and the CLI run each model on in-memory (or file) cyclic
   sequences on ``device="cpu"`` and beat random, with the bands of
   tests/test_sequential.py.
-- A ``mesh`` above 1x1 and ``distributed`` raise naming ROADMAP.md §1.8.
+- A ``mesh`` above the world (one process here) raises the JAX package's
+  ValueError; ``distributed`` without torchrun's variables raises naming
+  them.
 """
 
 import glob
@@ -142,12 +144,17 @@ def test_cli_runs_sasrec_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("name", sorted(CYCLIC))
-@pytest.mark.parametrize("key,value", [("mesh", {"data": 2}), ("mesh", {"model": 2}),
+@pytest.mark.parametrize("key,value", [("mesh", {"data": 2, "model": 1}),
+                                       ("mesh", {"data": 1, "model": 2}),
                                        ("distributed", True)])
-def test_scale_out_keys_raise_naming_the_roadmap(name, key, value):
+def test_scale_out_keys_raise_naming_the_roadmap(name, key, value, monkeypatch):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
     train, test = seq_dataset()
     conf = ModelConf(dict(seq_conf_dict(name), **{key: value}))
-    with pytest.raises(NotImplementedError, match="§1.8"):
+    err, match = ((ValueError, "needs more than 1 devices") if key == "mesh"
+                  else (RuntimeError, "missing MASTER_ADDR"))
+    with pytest.raises(err, match=match):
         get_model_class(name)(conf, train, test, device="cpu")
 
 

@@ -188,8 +188,8 @@ def test_norm_adj_from_scipy_and_lightgcn_match_jax(monkeypatch):
 def test_norm_adj_from_scipy_refuses_instead_of_switching_layout(monkeypatch):
     """Where the dense block cannot serve, both packages take the ELL
     layout, or with ``SELFREC_TPU_ELL=0`` the edge-list NormAdj (the same
-    arrays as JAX's, tests/test_torch_normadj.py); a layout the port lacks
-    raises instead of being replaced."""
+    arrays as JAX's, tests/test_torch_normadj.py); ``spmm`` over an object
+    that is no adjacency layout raises instead of guessing one."""
     monkeypatch.setenv("SELFREC_TPU_DENSE", "1")
     mat = _laplacian().tolil()
     mat[0, 1] = 0.5  # a user-user entry: not bipartite
@@ -207,7 +207,7 @@ def test_norm_adj_from_scipy_refuses_instead_of_switching_layout(monkeypatch):
         t_graph.spmm(edge_list, torch.from_numpy(x)).numpy(),
         np.asarray(jax_graph.spmm(jax_graph.norm_adj_from_scipy(_laplacian(), n_users=NU),
                                   jnp.asarray(x))), rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="not an adjacency layout"):
         t_graph.spmm(object(), torch.zeros(1, 1))
 
 
