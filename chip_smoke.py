@@ -12,6 +12,20 @@ from a seed.
 Prints each kernel's registers, shared memory and spills from
 ``nvcc -Xptxas -v``.
 
+CUDA graphs (selfrec_tpu_torch.utils.cuda_graph): every single-device
+training path below runs its steps as the trainer runs them on the card,
+two eager warm-up steps, the capture of the step into a CUDA graph, then one
+replay a step (each prints ``[graph] <model> <arm> train: captured``); ms/step
+is over the replays. After each path's steps, its eager twin: from one
+trainer state (a checkpoint's, put back in place) the next 5 steps replayed,
+run eagerly, and run eagerly again; losses, params, Adam's moments and aux
+of the replays and of the second eager run must equal the first eager
+run's bit for bit, or within rtol 1e-5 / atol 1e-6 where the path has float
+atomics (named); both ms/step are printed. The sequential evals replay one graph a block and
+must equal the eager block loop. Every kernel check also replays the kernel
+from a captured graph against its plain version. The profiled windows run
+graphed steps.
+
 SimGCL, int8x8 dense layout (SELFREC_TPU_DENSE=1):
 1. K1 kernel phase: K1's int8 kernel against its plain torch version at
    three ragged small shapes and at the yelp block (with its kept
@@ -31,7 +45,7 @@ SimGCL, int8x8 dense layout (SELFREC_TPU_DENSE=1):
    the top-20 lists on the card agree with the same model on the CPU.
 3. train phase: n_layer 3, lambda 0.5, eps 0.1 (the repo's headline
    configuration), the first 50 batches of an epoch through the trainer's
-   step; finite losses, K1 launched. Five more steps under torch.profiler.
+   step; finite losses, K1 launched. Three more (graphed) under torch.profiler.
 4. eval phase: compute_embeddings and one fast_evaluation over all test
    users; K1 launches once per layer. One more eval under the profiler.
 
@@ -51,7 +65,7 @@ temp 0.2), ELL layout (SELFREC_TPU_DENSE=0), and LightGCN on it:
    and top-20 lists.
 7. train phase: 50 steps of epoch 0 after epoch_setup; finite losses and
    exactly 4 K2 launches a step (2 hops forward and backward, the three
-   views packed). Five more steps under the profiler.
+   views packed). Three more (graphed) steps under the profiler.
 8. eval phase: compute_embeddings and one fast_evaluation; K2 launches
    n_layer times.
 9. LightGCN (n_layer 3) on the ELL layout: 10 steps, 6 K2 launches a step.
@@ -63,13 +77,13 @@ XSimGCL, DirectAU and MixGCF on the dense int8x8 block, and MF:
     CPU: embeddings, one batch loss with fed noise, top-20 lists.
 12. XSimGCL (bench.py:715-727: n_layer 3, l_star 1, lambda 0.2, eps 0.2,
     tau 0.15): 50 steps, 6 K1 launches a step (each hop forward and
-    backward); five more under the profiler; one eval, 3 launches.
+    backward); three more under the profiler; one eval, 3 launches.
 13. DirectAU (bench.py:764-775: gamma 2, n_layers 3): 10 steps, 6 K1
-    launches a step; five more under the profiler; one eval.
+    launches a step; three more under the profiler; one eval.
 14. MixGCF (conf/MixGCF.yaml: n_layer 3, n_negs 64): 10 steps, 6 K1
     launches a step, with (2048, 64, 64) mixing tensors and 131,072
-    sampler lanes a step; five more under the profiler.
-15. MF: 10 steps and one eval, with no K1 or K2 launch; five more steps
+    sampler lanes a step; three more under the profiler.
+15. MF: 10 steps and one eval, with no K1 or K2 launch; three more steps
     under the profiler.
 16. resume phase: on a small graph, XSimGCL on the card for 4 epochs, and
     for 2 then resumed to 4 from checkpoint.interval 2; the parameters
@@ -85,10 +99,10 @@ bench.py's _pinned_bf16 does; BUIR on ELL; NCL int8x8; SSL4Rec:
     one loss, its grads and the top-20 lists.
 18. SelfCF (bench.py:786-805: n_layer 2, tau 0.05): 50 steps, 4 K1 float
     launches a step (2 hops forward, 2 backward) and 2 operand passes
-    each; five more under the profiler; one eval, 2 launches.
+    each; three more under the profiler; one eval, 2 launches.
 19. BUIR (bench.py:690-712: n_layer 2, drop_rate 0.2, tau 0.995): 10
     steps over two dropout views a step, 6 K1 float launches a step
-    (online 2 forward and 2 backward, target 2 forward); five more under
+    (online 2 forward and 2 backward, target 2 forward); three more under
     the profiler; one eval, 2 launches. Then BUIR's ELL arm: K2 at P = 2
     against its plain version (its row of the K2 checks), and 10 steps, 4
     K2 launches a step.
@@ -129,7 +143,7 @@ relations, 155,341 distinct pairs; quarter douban 3,256 × 5,586):
 27. MHCN (n_layer 2, ss_rate 0.01) under SELFREC_TPU_DENSE=auto: the
     motifs built on the card (timed twice), 512 rows equal to the scipy
     route exactly; the three U × U channels, R and Rᵀ as bf16 DenseMat; 20
-    steps and one eval with no K1 or K2 launch (five more steps under the
+    steps and one eval with no K1 or K2 launch (three more steps under the
     profiler); DenseMat's GEMM timed alone at each shape and its share of
     the step.
 28. MHCN's ELL arm at quarter douban (SELFREC_TPU_DENSE=0): K2 against its
@@ -141,7 +155,7 @@ relations, 155,341 distinct pairs; quarter douban 3,256 × 5,586):
     its plain version (exactly) on the 13,024 × 22,345 block at D 64; 10
     warm steps (4 K1 int8 launches a step), the joint phase entered through
     the model's ``enter_phase``, 20 joint steps (8 a step; the epoch's
-    refactored view timed as epoch_setup; five more under the profiler);
+    refactored view timed as epoch_setup; three more under the profiler);
     K1 int8 against its plain version on that refactored view; one eval
     (2).
 30. SEPT's ELL arm, joint phase: K2 against its plain version on the union
@@ -157,7 +171,7 @@ drop_rate 0.2, batch 256, max.len 50; BERT4Rec mask_rate 0.5; CL4SRec
 aug_type 0, aug_rate 0.5, cl_rate 0.05) on amazon-beauty-scale synthetic
 sequences (22,363 sequences over 12,101 items, utils/synth.py):
 32. each model: one epoch (88 steps; the first step apart, ms/step over
-    steps 2..88 and sequences/s), five more steps under the profiler, and
+    steps 2..88 and sequences/s), three more steps under the profiler, and
     one test() plus ranking_evaluation (SASRec's under the profiler too)
     with the ranking alone (``top_items``) timed apart; finite losses and
     metrics, and no K1 or K2 launch on either path. For SASRec, one
@@ -225,7 +239,9 @@ BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 tensor rate
 K1_FLOAT_RTOL, K1_FLOAT_ATOL = 1e-5, 1e-3  # the JAX package's (tests/test_dense_dual.py)
 N_TRAIN_BATCHES = 50
 N_SHORT_BATCHES = 10
-N_PROFILE_STEPS = 5
+N_PROFILE_STEPS = 3
+TWIN_STEPS = 5              # the eager twin's steps (k >= 5)
+GRAPH_WARMUP = 2            # StepGraph's eager warm-up steps before its capture
 K2_RTOL = K2_ATOL = 2e-5    # the JAX package's own (tests/test_spmm_pallas.py)
 
 
@@ -317,6 +333,14 @@ def k1_case(tag, b, bt, d, gen):
         n_bad = int((ou != pu).sum()) + int((oi != pi).sum())
         raise RuntimeError(f"K1 {tag} U={u} I={i} D={d}: {n_bad} outputs differ "
                            f"from the plain version, max |err| {err}")
+
+    def same_as_plain(out):
+        if not (torch.equal(out[0], pu) and torch.equal(out[1], pi)):
+            raise RuntimeError(f"K1 {tag} U={u} I={i} D={d}: launched from a replayed "
+                               f"graph, it differs from the plain version")
+
+    graph_ms = graph_replay_check(lambda: dense_dual.dual_matmul(b, xu, xi, bt),
+                                  same_as_plain)
     del pu, pi
     again = dense_dual.dual_matmul(b, xu, xi, bt)
     if not (torch.equal(ou, again[0]) and torch.equal(oi, again[1])):
@@ -344,9 +368,11 @@ def k1_case(tag, b, bt, d, gen):
     k_ms = (kernel_only_ms(lambda: dense_dual.dual_matmul(b, xu, xi, bt), "dual_s8_kernel")
             if tag in ("yelp", "douban SEPT") else None)
     row = {"shape": [u, i, d], "tag": tag, "match": "exact", "max_abs_err": err,
-           "ms": ms, "ms_back_to_back": ms_b2b, "kernel_only_ms": k_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by}
-    log(f"[kernel] K1 {tag} U={u} I={i} D={d}: exact, {ms:.4f} ms "
+           "ms": ms, "ms_back_to_back": ms_b2b, "kernel_only_ms": k_ms, "graph_ms": graph_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
+           "bound_by": bound_by}
+    log(f"[kernel] K1 {tag} U={u} I={i} D={d}: exact (also replayed from a graph, "
+        f"{graph_ms:.4f} ms), {ms:.4f} ms "
         f"({ms_b2b:.4f} back to back, kernel alone {k_ms}; bound {bms:.4f} ms by "
         f"{bound_by}, plain {plain_ms:.3f} ms, _int_mm x2 {library_ms:.4f} ms)")
     return row
@@ -382,6 +408,15 @@ def k1_float_case(tag, b, bt, d, dtype, gen, grad=False):
         if not torch.allclose(got, want, rtol=K1_FLOAT_RTOL, atol=K1_FLOAT_ATOL):
             raise RuntimeError(f"K1 float {tag} {dtype} U={u} I={i} D={d}: differs "
                                f"from the plain version, max |err| {err}")
+
+    def close_to_plain(out):
+        if not all(torch.allclose(got, want, rtol=K1_FLOAT_RTOL, atol=K1_FLOAT_ATOL)
+                   for got, want in zip(out, (pu, pi))):
+            raise RuntimeError(f"K1 float {tag} {dtype} U={u} I={i} D={d}: launched from a "
+                               f"replayed graph, it differs from the plain version")
+
+    graph_ms = graph_replay_check(lambda: dense_dual.dual_matmul(b, xu, xi, bt),
+                                  close_to_plain)
     del pu, pi
     if grad:
         xu.requires_grad_(True)
@@ -423,11 +458,12 @@ def k1_float_case(tag, b, bt, d, dtype, gen, grad=False):
             if tag == "yelp" else None)
     row = {"shape": [u, i, d], "x": dt, "tag": tag,
            "match": f"rtol {K1_FLOAT_RTOL} atol {K1_FLOAT_ATOL}", "max_abs_err": err,
-           "ms": ms, "ms_back_to_back": ms_b2b, "kernel_only_ms": k_ms, "plain_ms": plain_ms,
+           "ms": ms, "ms_back_to_back": ms_b2b, "kernel_only_ms": k_ms, "graph_ms": graph_ms,
+           "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by,
            "library_max_abs_diff": lib_err}
-    log(f"[kernel] K1 float {tag} U={u} I={i} D={d} {dt}: max |err| {err:.3g}, "
-        f"{ms:.4f} ms ({ms_b2b:.4f} back to back, kernel alone {k_ms}; bound {bms:.4f} ms "
+    log(f"[kernel] K1 float {tag} U={u} I={i} D={d} {dt}: max |err| {err:.3g} (also "
+        f"replayed from a graph, {graph_ms:.4f} ms), {ms:.4f} ms ({ms_b2b:.4f} back to back, kernel alone {k_ms}; bound {bms:.4f} ms "
         f"by {bound_by}, plain {plain_ms:.3f} ms, torch.matmul x2 {library_ms:.4f} ms)")
     return row
 
@@ -458,6 +494,16 @@ def k2_case(tag, layout, w, x, exact=False):
                            f"rtol/atol {K2_RTOL}, max |err| {err}")
     if not torch.equal(out, ell_gather.ell_gather_sum(layout, w, x)):
         raise RuntimeError(f"K2 {tag}: two runs on the same inputs differ")
+
+    def same_as_eager(got):
+        # the eager launch equals the plain version (above) and K2 repeats
+        # bit for bit, so the replay must equal it exactly
+        if not torch.equal(got, out):
+            raise RuntimeError(f"K2 {tag}: launched from a replayed graph, it differs "
+                               f"from the plain version")
+
+    graph_ms = graph_replay_check(lambda: ell_gather.ell_gather_sum(layout, w, x),
+                                  same_as_eager)
     del ref
     ms = cuda_ms(lambda: ell_gather.ell_gather_sum(layout, w, x), reps=20)
     ms_b2b = back_to_back_ms(lambda: ell_gather.ell_gather_sum(layout, w, x), ms)
@@ -497,12 +543,12 @@ def k2_case(tag, layout, w, x, exact=False):
     row = {"shape": {"V": v, "K": k, "P": p, "D": d, "n_rows": layout.n_rows,
                      "n_src": x.shape[0], "x": dt},
            "tag": tag, "match": "exact" if exact else f"rtol/atol {K2_RTOL}",
-           "max_abs_err": err, "ms": ms, "ms_back_to_back": ms_b2b, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by,
-           "gathered_bytes": gathered,
+           "max_abs_err": err, "ms": ms, "ms_back_to_back": ms_b2b, "graph_ms": graph_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
+           "bound_by": bound_by, "gathered_bytes": gathered,
            "library_max_abs_diff": lib_err}
-    log(f"[kernel] K2 {tag} V={v} K={k} P={p} D={d} {dt}: max |err| {err:.3g}, "
-        f"{ms:.4f} ms ({ms_b2b:.4f} back to back; bound {bms:.4f} ms by {bound_by}, "
+    log(f"[kernel] K2 {tag} V={v} K={k} P={p} D={d} {dt}: max |err| {err:.3g} (also "
+        f"replayed from a graph, {graph_ms:.4f} ms), {ms:.4f} ms ({ms_b2b:.4f} back to back; bound {bms:.4f} ms by {bound_by}, "
         f"gathered rows {gathered / 1e9:.3f} GB; plain {plain_ms:.3f} ms, sparse.mm x{p} "
         f"{library_ms:.4f} ms, kernel/sparse.mm {ms / library_ms:.3f}, max |sparse.mm "
         f"- K2| {lib_err:.3g})")
@@ -1000,14 +1046,20 @@ def ncl_estep(model):
     return times
 
 
-def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, side=None):
+def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, side=None,
+               atomics=None):
     """The trainer's step over the first ``n_batches`` batches of epoch 0,
     after epoch_setup, with ``counter`` (a kernel wrapper, or a tuple of
-    them whose counts add) set to 0 just before and read just after. Checks
-    finite losses and the launch count (exactly ``per_step`` a step, 0
-    included, or at least one). ``side`` (a counter and its launches a
-    step) is a second count of the same run, checked exactly too (K1 float's
-    operand pass). Returns the launches and the ms/step of steps 2..m."""
+    them whose counts add) set to 0 just before and read just after. The
+    steps run as the trainer runs them on the card: the first
+    ``GRAPH_WARMUP`` eagerly as the step graph's warm-up, then the capture,
+    then replays. Checks finite losses and the launch count (exactly
+    ``per_step`` a step, 0 included, or at least one), replays included.
+    ``side`` (a counter and its launches a step) is a second count of the
+    same run, checked exactly too (K1 float's operand pass). Then the eager
+    twin (:func:`twin_gate`, ``atomics`` as there) over the next
+    ``TWIN_STEPS`` batches, and ``profile_steps`` graphed steps under the
+    profiler. Returns the launches and the graphed ms/step of the replays."""
     import torch
 
     counters = counter if isinstance(counter, tuple) else (counter,)
@@ -1015,22 +1067,24 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, s
     users, items, masks = model.epoch_batches(0)
     torch.cuda.synchronize()
     t_setup = time.time()
-    model.aux = model.epoch_setup(0)
+    model.begin_epoch(0)
     torch.cuda.synchronize()
     setup_ms = 1e3 * (time.time() - t_setup)
-    m = min(n_batches, users.shape[0] - profile_steps)
+    m = min(n_batches, users.shape[0] - profile_steps - TWIN_STEPS)
+    w = GRAPH_WARMUP + 1  # the warm-up steps and the captured one
+    replays0 = model._graphs["train"].replays if "train" in model._graphs else 0
     torch.cuda.synchronize()
     for c in counters_reset:
         c.launches = 0
     t0 = time.time()
-    first = model.train_batches(users[:1], items[:1], masks[:1])
+    first = model.train_batches(users[:w], items[:w], masks[:w])
     torch.cuda.synchronize()
     t1 = time.time()
-    rest = model.train_batches(users[1:m], items[1:m], masks[1:m])
+    rest = model.train_batches(users[w:m], items[w:m], masks[w:m])
     torch.cuda.synchronize()
     t2 = time.time()
     launches = sum(c.launches for c in counters)
-    step_ms = 1e3 * (t2 - t1) / (m - 1)
+    step_ms = 1e3 * (t2 - t1) / (m - w)
     losses = torch.cat([first, rest]).cpu()
     if not bool(torch.isfinite(losses).all()):
         raise RuntimeError(f"{tag} train: non-finite losses {losses.tolist()}")
@@ -1040,17 +1094,30 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, s
     if side is not None and side[0].launches != side[1] * m:
         raise RuntimeError(f"{tag} train: {side[0].launches} side launches in {m} steps, "
                            f"expected {side[1]} a step")
+    eager = model.step_graph_eager_reason()  # a mesh: eager by rule
+    runner = model._graphs.get("train")
+    if eager is None and (runner is None or not runner.graphed
+                          or runner.replays - replays0 != m - GRAPH_WARMUP):
+        raise RuntimeError(f"{tag} train: the steps did not run as replays of a captured "
+                           f"graph ({model.graph_report() or 'no graph'})")
+    first_how = (f"{GRAPH_WARMUP} eager warm-up and the capture" if eager is None
+                 else f"eager: {eager}")
     log(f"[train {tag}] {m} batches x {model.batch_size}: loss {float(losses[0]):.6f} -> "
         f"{float(losses[-1]):.6f}, {t2 - t0:.3f} s, "
-        f"{m * model.batch_size / (t2 - t0):.1f} examples/s (first step "
-        f"{1e3 * (t1 - t0):.1f} ms; steps 2..{m}: {step_ms:.2f} "
-        f"ms/step, {(m - 1) * model.batch_size / (t2 - t1):.1f} examples/s), "
-        f"launches {launches}{'' if side is None else f' (side {side[0].launches})'}; "
-        f"epoch_setup {setup_ms:.1f} ms")
+        f"{m * model.batch_size / (t2 - t0):.1f} examples/s (first {w} steps, {first_how}, "
+        f"{1e3 * (t1 - t0):.1f} ms; steps {w + 1}..{m} "
+        f"{'replayed' if eager is None else 'eager'}: {step_ms:.2f} ms/step, "
+        f"{(m - w) * model.batch_size / (t2 - t1):.1f} examples/s), launches {launches}"
+        f"{'' if side is None else f' (side {side[0].launches})'}; epoch_setup "
+        f"{setup_ms:.1f} ms; graph {model.graph_report() or 'none'}")
+    if eager is None:
+        twin = slice(m, m + TWIN_STEPS)
+        twin_gate(tag, model, (users[twin], items[twin], masks[twin]), atomics)
     if profile_steps:
         n = profile_steps
-        profile_window(f"train {tag}", lambda: model.train_batches(
-            users[m:m + n], items[m:m + n], masks[m:m + n]), n)
+        p = slice(m + TWIN_STEPS, m + TWIN_STEPS + n)
+        profile_window(f"train {tag}{' graphed' if eager is None else ''}",
+                       lambda: model.train_batches(users[p], items[p], masks[p]), n)
     return launches, step_ms
 
 
@@ -1097,25 +1164,104 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
 
 
 def snapshot(model):
-    """The trainer state a step changes: params, Adam's state, the step
-    generator's state, aux."""
-    import copy
+    """The trainer state a step changes (params, Adam's state, the step
+    generator's state, aux) as a checkpoint holds it, copied to the CPU."""
+    from selfrec_tpu_torch.utils import checkpoint as ckpt
 
-    return ({k: v.detach().clone() for k, v in model.params.items()},
-            copy.deepcopy(model.optimizer.state_dict()), model.generator.get_state(),
-            dict(model.aux))
+    return ckpt._to(ckpt.train_state(model), "cpu")
 
 
 def restore(model, state):
+    """Put ``snapshot``'s state back, in place where a step graph holds it
+    (the checkpoint's resume path)."""
+    from selfrec_tpu_torch.utils import checkpoint as ckpt
+
+    ckpt.apply_train_state(model, state)
+
+
+def trainer_values(model, losses):
+    """Losses, params, Adam's moments and aux after a run, on the CPU."""
+    out = {"losses": losses.detach().cpu()}
+    for k, p in model.params.items():
+        out[f"param {k}"] = p.detach().cpu()
+        for m in ("exp_avg", "exp_avg_sq"):
+            out[f"{m} {k}"] = model.optimizer.state[p][m].cpu()
+    for k, v in getattr(model, "aux", {}).items():
+        out[f"aux {k}"] = v.cpu()
+    return out
+
+
+def twin_gate(tag, model, batches, atomics=None):
+    """The eager twin: from one trainer state, the same steps over
+    ``batches`` replayed from the captured step graph, run eagerly
+    (``eager_batches``), and run eagerly once more. Losses, params, Adam's
+    moments and aux of the replays and of the second eager run must equal
+    the first eager run's bit for bit, or where the path has float atomics
+    (``atomics`` names them) within rtol 1e-5 / atol 1e-6. Returns
+    (graphed, eager) ms/step over these few steps, each host clock over the
+    run ended by a synchronise: a reading of the twin, not a baseline (the
+    eager time follows the host)."""
     import torch
 
-    params, opt, gen, aux = state
-    with torch.no_grad():
-        for k, v in params.items():
-            model.params[k].copy_(v)
-    model.optimizer.load_state_dict(opt)
-    model.generator.set_state(gen)
-    model.aux = dict(aux)
+    start = snapshot(model)
+    n = batches[0].shape[0]
+    runs = {}
+    for how, run in (("graphed", model.train_batches), ("eager", model.eager_batches),
+                     ("eager again", model.eager_batches)):
+        restore(model, start)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses = run(*batches)
+        torch.cuda.synchronize()
+        runs[how] = (1e3 * (time.time() - t0) / n, trainer_values(model, losses))
+    e = runs["eager"][1]
+    found = []
+    for how in ("graphed", "eager again"):
+        g = runs[how][1]
+        worst = max(float((g[k].double() - e[k].double()).abs().max()) for k in g)
+        equal = all(torch.equal(g[k], e[k]) for k in g)
+        if not equal and (atomics is None or not all(
+                torch.allclose(g[k], e[k], rtol=1e-5, atol=1e-6) for k in g)):
+            bad = [k for k in g if not torch.equal(g[k], e[k])]
+            need = "bit-equal" if atomics is None else "rtol 1e-5 / atol 1e-6"
+            raise RuntimeError(f"{tag} twin: {how} and eager differ after {n} steps in "
+                               f"{bad[:6]}, max |diff| {worst} ({need} required)")
+        found.append(f"{how} vs eager " + (
+            "bit-equal" if equal else f"within rtol 1e-5 / atol 1e-6 (max |diff| {worst:.3g})"))
+    log(f"[twin {tag}] {n} steps from one state; losses, params, Adam moments"
+        f"{', aux' if getattr(model, 'aux', None) else ''}: {'; '.join(found)}"
+        f"{'' if atomics is None else f'; float atomics: {atomics}'}; {n}-step twin reading: "
+        f"graphed {runs['graphed'][0]:.2f} ms/step, eager {runs['eager'][0]:.2f} ms/step")
+    return runs["graphed"][0], runs["eager"][0]
+
+
+def graph_replay_check(fn, check):
+    """``fn`` (a kernel wrapper's call on fixed inputs) captured into a
+    CUDA graph after one warm-up call and replayed: ``check`` gets the
+    replay's outputs (it raises where they differ from the plain version).
+    Returns the ms of one replay, timed as ``ms``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(static)
+    ms = cuda_ms(graph.replay, reps=20)
+    del graph, static
+    return ms
+
+
+def free(model):
+    """Drop a model's step graphs and their pools before the next phase."""
+    import torch
+
+    if hasattr(model, "release_graphs"):
+        model.release_graphs()
+    torch.cuda.empty_cache()
 
 
 def sampler_gates(model, n_steps=3):
@@ -1142,7 +1288,9 @@ def sampler_gates(model, n_steps=3):
         negs = []
         sample = type(model).sample_negatives
         model.sample_negatives = lambda u: negs.append(sample(model, u)) or negs[-1]
-        losses = model.train_batches(users[:n_steps], items[:n_steps], masks[:n_steps])
+        # eager steps: the patched sampler and the swapped bitmap are Python
+        # state that a captured step would not see again
+        losses = model.eager_batches(users[:n_steps], items[:n_steps], masks[:n_steps])
         del model.sample_negatives
         drawn[tag] = (torch.stack(negs), losses)
     model._rated_bitmap = None
@@ -1669,6 +1817,7 @@ def social_phases(k1_paths, k1_rows, k1_float, k2_paths, k2_rows):
         profile_steps=N_PROFILE_STEPS)
     densemat_gemm_ms(model, step_ms)
     k1_paths["mhcn_dense_eval"] = eval_path("MHCN DenseMat", model, social_kernels, expect=0)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -1683,6 +1832,7 @@ def social_phases(k1_paths, k1_rows, k1_float, k2_paths, k2_rows):
         per_step=2 * (5 * model.n_layers + 3))
     k2_paths["mhcn_ell_eval"] = eval_path("MHCN ELL quarter douban", model,
                                           ell_gather.ell_gather_sum, expect=5 * model.n_layers)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -1710,6 +1860,7 @@ def social_phases(k1_paths, k1_rows, k1_float, k2_paths, k2_rows):
     k1_rows.append(k1_case("douban SEPT dropped view", view.a_ui, view.a_iu, 64, gen))
     del view
     k1_paths["sept_eval"] = eval_path("SEPT int8x8", model, dense_dual.dual_matmul)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -1723,6 +1874,7 @@ def social_phases(k1_paths, k1_rows, k1_float, k2_paths, k2_rows):
     k2_paths["sept_ell_joint_train"], _ = train_path(
         "SEPT ELL joint", model, ell_gather.ell_gather_sum, N_SHORT_BATCHES,
         per_step=4 * model.n_layers)
+    free(model)
     del model, douban
     torch.cuda.empty_cache()
     social_reference_phase()
@@ -1908,27 +2060,33 @@ def seq_resume_phase():
 
 
 def seq_path(tag, model, counters, profile_steps=N_PROFILE_STEPS, profile_eval=False):
-    """One epoch of ``model`` through the trainer's step (the first step
-    apart), then one full test() plus ranking_evaluation, each with the
-    launch counts of ``counters`` (name -> kernel wrapper) set to 0 just
-    before and read just after: none may launch. Checks finite losses and
-    metrics; ``profile_steps`` more steps, and with ``profile_eval`` one
-    more eval, under the profiler. Returns {name: launches} of the train
-    and eval runs."""
+    """One epoch of ``model`` through the trainer's step graph (the warm-up
+    steps and the capture apart, the eager twin over the last
+    ``TWIN_STEPS`` batches), then one full test() plus ranking_evaluation
+    through the eval graph, each with the launch counts of ``counters``
+    (name -> kernel wrapper) set to 0 just before and read just after:
+    none may launch. Checks finite losses and metrics, that the steps and
+    the eval blocks ran as replays, and that the graphed top_items equals
+    the eager block loop (ids may differ only at an f32 near-tie, counted);
+    ``profile_steps`` more graphed steps, and with ``profile_eval`` one
+    more graphed ranking, under the profiler. Returns {name: launches} of
+    the train and eval runs."""
     import torch
 
+    from selfrec_tpu_torch.models.base import SequentialRecommender
     from selfrec_tpu_torch.utils import metrics
 
     idx, row_mask = model.epoch_batches(0)
-    m = idx.shape[0]
+    m = idx.shape[0] - TWIN_STEPS
+    w = GRAPH_WARMUP + 1
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
     t0 = time.time()
-    first = model.train_batches(idx[:1], row_mask[:1])
+    first = model.train_batches(idx[:w], row_mask[:w])
     torch.cuda.synchronize()
     t1 = time.time()
-    rest = model.train_batches(idx[1:], row_mask[1:])
+    rest = model.train_batches(idx[w:m], row_mask[w:m])
     torch.cuda.synchronize()
     t2 = time.time()
     train_launches = {k: c.launches for k, c in counters.items()}
@@ -1937,14 +2095,21 @@ def seq_path(tag, model, counters, profile_steps=N_PROFILE_STEPS, profile_eval=F
         raise RuntimeError(f"{tag} train: non-finite losses {losses.tolist()}")
     if any(train_launches.values()):
         raise RuntimeError(f"{tag} train: kernel launches {train_launches}, expected none")
+    runner = model._graphs.get("train")
+    if runner is None or not runner.graphed or runner.replays != m - GRAPH_WARMUP:
+        raise RuntimeError(f"{tag} train: the steps did not run as replays of a captured "
+                           f"graph ({model.graph_report() or 'no graph'})")
     n_seqs = len(model.data.original_seq)
     log(f"[train {tag}] {m} batches x {model.batch_size} ({n_seqs} sequences): loss "
-        f"{float(losses[0]):.6f} -> {float(losses[-1]):.6f}, epoch {t2 - t0:.3f} s, "
-        f"{n_seqs / (t2 - t0):.1f} sequences/s (first step {1e3 * (t1 - t0):.1f} ms; steps "
-        f"2..{m}: {1e3 * (t2 - t1) / (m - 1):.2f} ms/step, "
-        f"{(m - 1) * model.batch_size / (t2 - t1):.1f} sequences/s), launches {train_launches}")
+        f"{float(losses[0]):.6f} -> {float(losses[-1]):.6f}, {t2 - t0:.3f} s, "
+        f"{m * model.batch_size / (t2 - t0):.1f} sequences/s (first {w} steps, "
+        f"{GRAPH_WARMUP} eager warm-up and the capture, {1e3 * (t1 - t0):.1f} ms; steps "
+        f"{w + 1}..{m} replayed: {1e3 * (t2 - t1) / (m - w):.2f} ms/step, "
+        f"{(m - w) * model.batch_size / (t2 - t1):.1f} sequences/s), launches "
+        f"{train_launches}; graph {model.graph_report()}")
+    twin_gate(tag, model, (idx[m:], row_mask[m:]))
     if profile_steps:
-        profile_window(f"train {tag}", lambda: model.train_batches(
+        profile_window(f"train {tag} graphed", lambda: model.train_batches(
             idx[:profile_steps], row_mask[:profile_steps]), profile_steps)
 
     torch.cuda.synchronize()
@@ -1961,12 +2126,26 @@ def seq_path(tag, model, counters, profile_steps=N_PROFILE_STEPS, profile_eval=F
     perf = metrics.parse_measure(measure)
     if len(rec_list) != n_seqs or not all(math.isfinite(v) for v in perf.values()):
         raise RuntimeError(f"{tag} eval: {len(rec_list)} lists for {n_seqs} sequences, {perf}")
+    n_blocks = -(-n_seqs // model.batch_size)
+    ev = model._graphs.get("eval")
+    if ev is None or not ev.graphed or ev.replays != n_blocks - 1:
+        raise RuntimeError(f"{tag} eval: the blocks did not run as replays of a captured "
+                           f"graph ({model.graph_report()})")
+    (sc_g, id_g), (sc_e, id_e) = (tuple(x.cpu() for x in run()) for run in (
+        model.top_items, lambda: SequentialRecommender.top_items(model)))
+    if not torch.allclose(sc_g, sc_e, rtol=1e-5, atol=1e-6):
+        raise RuntimeError(f"{tag} eval: the graphed top-{model.max_N} scores differ from "
+                           f"the eager blocks' by up to {float((sc_g - sc_e).abs().max())}")
     rank_ms = cuda_ms(model.top_items, reps=3)
+    eager_rank_ms = cuda_ms(lambda: SequentialRecommender.top_items(model), reps=3)
     log(f"[eval {tag}] test() + ranking_evaluation over {n_seqs} sequences: Recall@20 "
         f"{perf['Recall']} NDCG@20 {perf['NDCG']}, {eval_ms:.1f} ms, launches {eval_launches}; "
-        f"ranking alone (top_items: {-(-n_seqs // model.batch_size)} blocks of encoder, "
-        f"scores and top-{model.max_N}) {rank_ms:.1f} ms")
+        f"ranking alone (top_items: {n_blocks} blocks of encoder, scores and "
+        f"top-{model.max_N}) graphed {rank_ms:.1f} ms, eager {eager_rank_ms:.1f} ms; graphed "
+        f"ids equal the eager blocks' but at {int((id_g != id_e).sum())} of {id_g.numel()} "
+        f"positions (f32 near-ties, scores within rtol 1e-5 / atol 1e-6)")
     if profile_eval:
+        profile_window(f"eval {tag} ranking graphed", model.top_items, 1)
         profile_window(f"eval {tag}", lambda: metrics.ranking_evaluation(
             model.data.test_set, model.test(), [model.max_N]), 1)
     return train_launches, eval_launches
@@ -2034,6 +2213,7 @@ def sequential_phases(paths):
         for k, (_, by_path) in paths.items():
             by_path[f"{name.lower()}_train"] = train_l[k]
             by_path[f"{name.lower()}_eval"] = eval_l[k]
+        free(model)
         del model
         torch.cuda.empty_cache()
     seq_reference_phase()
@@ -2375,7 +2555,7 @@ def f32_mesh_gate(rank, mesh, gen):
                            train, test, device="cuda")
             model.build()
             users, items, masks = model.epoch_batches(0)
-            model.aux = model.epoch_setup(0)
+            model.begin_epoch(0)
             dense_dual.float_products.launches = 0
             losses = model.train_batches(users[:3], items[:3], masks[:3])
             torch.cuda.synchronize()
@@ -2475,6 +2655,7 @@ def scale_out_rank(rank, port, out_path):
         log(f"[scale-out {tag}] sharded top-k: {nm > 1}; bytes a rank receives a step: "
             f"{res['comm'][key]}")
         replica_gate(tag, model)
+        free(model)
         del model
         torch.cuda.empty_cache()
 
@@ -2491,7 +2672,7 @@ def scale_out_rank(rank, port, out_path):
     if not (isinstance(model.adj, HaloAdj) and isinstance(model._view_template, HaloAdj)):
         raise RuntimeError(f"SGL 1x2: {model.adj!r}, {model._view_template!r}")
     log(f"[setup] rank {rank} SGL ELL 1x2: {model._view_template!r}")
-    model.aux = model.epoch_setup(0)
+    model.begin_epoch(0)
     row = k2_slice_rows("1x2", model, gen, rank, time_it=True)
     if row is not None:
         res["rows"]["k2"] = row
@@ -2504,6 +2685,7 @@ def scale_out_rank(rank, port, out_path):
     log(f"[scale-out SGL ELL 1x2] bytes a rank receives a step (the template at P = 3): "
         f"{res['comm']['halo_sgl_1x2']}")
     replica_gate("SGL ELL 1x2", model)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -2529,6 +2711,7 @@ def scale_out_rank(rank, port, out_path):
         f"{float(losses[-1]):.6f}, steps 2..6: {res['ms']['sasrec_1x2_step']:.1f} ms/step; "
         f"sharded params {sorted(model._sharded)}")
     replica_gate("SASRec 1x2", model)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -2541,6 +2724,7 @@ def scale_out_rank(rank, port, out_path):
     res["k1"]["sharded_mhcn_1x2_train"], res["ms"]["sharded_mhcn_1x2_step"] = train_path(
         "MHCN ShardedDenseMat 1x2", model, no_kernel, 5, per_step=0)
     replica_gate("MHCN 1x2", model)
+    free(model)
     del model
 
     with open(out_path, "w") as f:
@@ -2683,12 +2867,13 @@ def main():
                                              N_TRAIN_BATCHES, profile_steps=N_PROFILE_STEPS)
     k1_paths["simgcl_eval"] = eval_path("SimGCL int8x8", model, dense_dual.dual_matmul,
                                         profile=True)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
     # SGL's ELL arm and LightGCN on the ELL layout ------------------------------
     model = yelp_model(SGL, "SGL", SGL_CONF, data, dense=False)
-    model.aux = model.epoch_setup(0)
+    model.begin_epoch(0)
     k2_rows = k2_phase(model)
     torch.cuda.empty_cache()
     sgl_reference_phase()
@@ -2697,12 +2882,14 @@ def main():
         "SGL ELL", model, ell_gather.ell_gather_sum, N_TRAIN_BATCHES,
         per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
     k2_paths["sgl_ell_eval"] = eval_path("SGL ELL", model, ell_gather.ell_gather_sum)
+    free(model)
     del model
     torch.cuda.empty_cache()
     model = yelp_model(LightGCN, "LightGCN", {"n_layer": 3}, data, dense=False)
     k2_paths["lightgcn_ell_train"], _ = train_path(
         "LightGCN ELL", model, ell_gather.ell_gather_sum, N_SHORT_BATCHES,
         per_step=2 * model.n_layers)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -2711,6 +2898,7 @@ def main():
     k1_paths["sgl_dense_train"], _ = train_path(
         "SGL dense int8x8", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
         per_step=3 * 2 * model.n_layers)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -2722,6 +2910,7 @@ def main():
         "XSimGCL int8x8", model, dense_dual.dual_matmul, N_TRAIN_BATCHES,
         per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
     k1_paths["xsimgcl_eval"] = eval_path("XSimGCL int8x8", model, dense_dual.dual_matmul)
+    free(model)
     del model
     torch.cuda.empty_cache()
     model = yelp_model(DirectAU, "DirectAU", DIRECTAU, data, dense=True)
@@ -2729,12 +2918,14 @@ def main():
         "DirectAU int8x8", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
         per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
     k1_paths["directau_eval"] = eval_path("DirectAU int8x8", model, dense_dual.dual_matmul)
+    free(model)
     del model
     torch.cuda.empty_cache()
     model = yelp_model(MixGCF, "MixGCF", MIXGCF, data, dense=True)
     k1_paths["mixgcf_train"], _ = train_path(
         "MixGCF int8x8", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
         per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -2744,6 +2935,7 @@ def main():
     k1_paths["mf_train"], _ = train_path("MF", model, no_kernel, N_SHORT_BATCHES, per_step=0,
                                       profile_steps=N_PROFILE_STEPS)
     k1_paths["mf_eval"] = eval_path("MF", model, no_kernel, expect=0)
+    free(model)
     del model
     torch.cuda.empty_cache()
     resume_phase()
@@ -2760,6 +2952,7 @@ def main():
         profile_steps=N_PROFILE_STEPS,
         side=(dense_dual.float_operand, 2 * 2 * model.n_layers))  # two operands a launch
     k1f_paths["selfcf_eval"] = eval_path("SelfCF bf16", model, k1_float, width=128)
+    free(model)
     del model
     torch.cuda.empty_cache()
     with pinned_bf16():
@@ -2768,6 +2961,7 @@ def main():
         "BUIR bf16", model, k1_float, N_SHORT_BATCHES, per_step=3 * model.n_layers,
         profile_steps=N_PROFILE_STEPS, side=(dense_dual.float_operand, 2 * 3 * model.n_layers))
     k1f_paths["buir_eval"] = eval_path("BUIR bf16", model, k1_float, width=128)
+    free(model)
     del model
     torch.cuda.empty_cache()
     model = yelp_model(BUIR, "BUIR", BUIR_CONF, data, dense=False)
@@ -2775,6 +2969,7 @@ def main():
     k2_paths["buir_ell_train"], _ = train_path(
         "BUIR ELL", model, ell_gather.ell_gather_sum, N_SHORT_BATCHES,
         per_step=2 * model.n_layers)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -2788,6 +2983,7 @@ def main():
         "NCL int8x8 prototype phase", model, dense_dual.dual_matmul, N_SHORT_BATCHES,
         per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
     k1_paths["ncl_eval"] = eval_path("NCL int8x8", model, dense_dual.dual_matmul)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -2797,6 +2993,7 @@ def main():
     k1_paths["ssl4rec_train"], _ = train_path("SSL4Rec", model, no_kernel, N_SHORT_BATCHES,
                                            per_step=0, profile_steps=N_PROFILE_STEPS)
     k1_paths["ssl4rec_eval"] = eval_path("SSL4Rec", model, no_kernel, expect=0, width=128)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -2814,6 +3011,7 @@ def main():
         k1_paths["simgcl_scatter_eval"] = eval_path("SimGCL int8x8 scatter mask", model,
                                                     dense_dual.dual_matmul, profile=True)
     scatter_eval_gate("SimGCL int8x8", model)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -2833,6 +3031,7 @@ def main():
             N_SHORT_BATCHES, per_step=2 * model.n_layers)
         k2_paths["lightgcn_auto_ell_eval"] = eval_path(
             "LightGCN auto over budget (ELL, scatter mask)", model, ell_gather.ell_gather_sum)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -2843,9 +3042,10 @@ def main():
         raise RuntimeError(f"SELFREC_TPU_ELL=0 phase: {model.adj!r}")
     k1_paths["lightgcn_normadj_train"], _ = train_path(
         "LightGCN NormAdj", model, no_kernel, N_SHORT_BATCHES, per_step=0,
-        profile_steps=N_PROFILE_STEPS)
+        profile_steps=N_PROFILE_STEPS, atomics="index_add_ in NormAdj's sums")
     k1_paths["lightgcn_normadj_eval"] = eval_path("LightGCN NormAdj", model, no_kernel,
                                                   expect=0)
+    free(model)
     del model
     torch.cuda.empty_cache()
 
@@ -2857,6 +3057,7 @@ def main():
         model = cls(graph_conf(cls.__name__, {}, **KNN_CONF), *data, device="cuda")
         log(f"[setup] {cls.__name__}: {time.time() - t0:.1f} s")
         k1_paths[f"{cls.__name__.lower()}"] = knn_path(cls.__name__, model, no_kernel)
+        free(model)
         del model
         torch.cuda.empty_cache()
 

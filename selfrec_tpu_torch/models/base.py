@@ -4,12 +4,23 @@ Same template-method pipeline as the reference ``Recommender.execute()``
 (reference/base/recommender.py:73-83: initializing_log →
 print_model_info → build → train → test → evaluate) and the same
 best-by-majority-vote ``fast_evaluation`` bookkeeping
-(base/graph_recommender.py:81-104). The JAX package runs an epoch as one
-jitted ``lax.scan``; here it is a Python loop over batches, each step in the
-order of base.py:502-535: sample negatives, loss and grads, Adam step,
-``step_update``. The sequential trainer (base.py:698-944) loops the same
-way over padded sequence batches. Everything runs on one explicit
+(base/graph_recommender.py:81-104). Everything runs on one explicit
 ``device``.
+
+The JAX package runs an epoch as one jitted ``lax.scan`` (base.py:500-570)
+and its sequential eval's blocks as another (base.py:733-759). Here each
+step, in the order of base.py:502-535 (sample negatives, loss and grads,
+Adam step, ``step_update``), reads its batch from persistent buffers at a
+device step counter, and on the card it is a CUDA graph captured once and
+replayed once a step (:class:`~selfrec_tpu_torch.utils.cuda_graph.
+StepGraph`); the sequential trainer (base.py:698-944) does the same over
+padded sequence batches, and its eval replays one graph a block. The same
+static step runs eagerly, by rule and not on error, on the CPU (no graphs)
+and under a mesh (gloo's collectives go through host memory, which a graph
+cannot capture); the graph models' eval stays eager too
+(``ops/ranking.py`` runs all its blocks before one host copy). Each path
+prints ``[graph] <model> <arm> <path>: captured`` or ``... eager
+(<reason>)``.
 
 ``checkpoint.dir`` / ``checkpoint.interval`` (resume and periodic saves,
 :mod:`selfrec_tpu_torch.utils.checkpoint`) and ``profile.dir`` (a
@@ -29,6 +40,7 @@ bit-identical.
 
 from __future__ import annotations
 
+import functools
 import os
 from os.path import abspath
 from time import localtime, strftime, time
@@ -47,6 +59,7 @@ from selfrec_tpu_torch.ops.precision import set_compute_dtype
 from selfrec_tpu_torch.parallel import distributed
 from selfrec_tpu_torch.parallel import mesh as mesh_lib
 from selfrec_tpu_torch.utils import metrics
+from selfrec_tpu_torch.utils.cuda_graph import CudaGraph, StepGraph
 from selfrec_tpu_torch.utils.logger import Log
 
 
@@ -341,8 +354,139 @@ class _TrainStateMixin:
         self.optimizer.step()
 
     def make_optimizer(self, params: Dict[str, torch.Tensor]):
+        """Adam; on the card ``capturable`` (its step count and bias
+        correction on the device), so that a CUDA graph can hold its step."""
         return torch.optim.Adam(list(params.values()), lr=self.lrate,
-                                betas=(0.9, 0.999), eps=1e-8)
+                                betas=(0.9, 0.999), eps=1e-8,
+                                capturable=self.device.type == "cuda")
+
+    # -- the step graphs -------------------------------------------------------
+    # Both trainers run their steps through one runner: each names the
+    # (n_batches, ...) arrays a step reads (``step_arrays``), turns one row
+    # of each into a ``train_step`` batch (``step_batch``) and says how many
+    # batches an epoch holds (``epoch_steps``).
+    step_arrays: Tuple[str, ...] = ()
+    graph_class = CudaGraph  # what a step graph is captured into on the card
+
+    def _init_graphs(self):
+        self._graphs: Dict[str, StepGraph] = {}
+        self._static: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def step_graph_eager_reason(self) -> Optional[str]:
+        """Why this model's steps (and sequential eval blocks) run eagerly,
+        or None where they run as CUDA graphs: on the CPU there are none,
+        and a mesh's collectives go through gloo staged in host memory,
+        which a graph cannot capture."""
+        if self.device.type != "cuda":
+            return "CPU: no CUDA graphs"
+        if self.mesh is not None:
+            return "mesh: collectives over gloo through host memory"
+        return None
+
+    def graph_arm(self) -> str:
+        """The layout a graph's log lines name: the adjacency's class (and
+        its dense matmul dtype), or "no adjacency"."""
+        adj = getattr(self, "adj", None)
+        if adj is None and getattr(self, "H", None) is not None:
+            adj = self.H[0]
+        if adj is None:
+            return "no adjacency"
+        dt = getattr(adj, "mm_dtype", None)
+        return type(adj).__name__ + ("" if dt is None else f" {str(dt).split('.')[-1]}")
+
+    def _runner(self, key: str, fn, generators=(), warmup: int = 2) -> StepGraph:
+        """The step graph ``key``, made on first use: captured on the card,
+        run eagerly where :meth:`step_graph_eager_reason` gives a reason
+        (printed once). It drops its graph when the optimizer, aux or the
+        params dict is not the one it holds (:meth:`StepGraph.track`)."""
+        runner = self._graphs.get(key)
+        if runner is None:
+            name = f"{self.model_name} {self.graph_arm()} {key}"
+            reason = self.step_graph_eager_reason()
+            if reason is not None:
+                print(f"[graph] {name}: eager ({reason})", flush=True)
+            runner = self._graphs[key] = StepGraph(
+                fn, self.device, name, warmup=warmup,
+                new_graph=None if reason is not None
+                else functools.partial(self.graph_class, generators))
+        runner.track(self.optimizer, getattr(self, "aux", None), self.params)
+        return runner
+
+    def _static_buffers(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Persistent buffers that the train graph reads, holding ``arrays``
+        (each (n_batches, ...)) in their first rows, a device step counter
+        ``ctr`` set to 0 and a ``loss`` a batch. They hold an epoch's
+        batches and are made again, and the graph dropped, only when a call
+        brings more batches or other shapes."""
+        n = next(iter(arrays.values())).shape[0]
+        bufs = self._static.get("train")
+        if bufs is None or bufs["loss"].shape[0] < n or any(
+                bufs[k].shape[1:] != v.shape[1:] or bufs[k].dtype != v.dtype
+                for k, v in arrays.items()):
+            rows = max(n, self.epoch_steps())
+            bufs = {k: torch.empty((rows, *v.shape[1:]), dtype=v.dtype, device=self.device)
+                    for k, v in arrays.items()}
+            bufs["ctr"] = torch.zeros(1, dtype=torch.int64, device=self.device)
+            bufs["loss"] = torch.zeros(rows, dtype=torch.float32, device=self.device)
+            self._static["train"] = bufs
+            if "train" in self._graphs:
+                self._graphs["train"].invalidate(warm=False)
+        for k, v in arrays.items():
+            bufs[k][:n].copy_(v)
+        bufs["ctr"].zero_()
+        return bufs
+
+    def _static_step(self):
+        """One step over the rows of the persistent buffers at the device
+        step counter: the loss written at the counter, the counter
+        advanced. What the train graph captures."""
+        bufs = self._static["train"]
+        k = bufs["ctr"]
+        loss = self.train_step(self.step_batch(
+            {name: bufs[name].index_select(0, k)[0] for name in self.step_arrays}))
+        bufs["loss"].index_copy_(0, k, loss.reshape(1))
+        k.add_(1)
+
+    def run_steps(self, *arrays: torch.Tensor) -> torch.Tensor:
+        """The steps over ``arrays`` (``step_arrays``, each (n_batches,
+        ...)) through the train graph: the arrays copied into its buffers,
+        then one call a step, a replay on the card and the same static step
+        run eagerly on the CPU and under a mesh. Returns the (n_batches,)
+        losses on the device."""
+        bufs = self._static_buffers(dict(zip(self.step_arrays, arrays)))
+        runner = self._runner("train", self._static_step, (self.generator,))
+        n = arrays[0].shape[0]
+        for _ in range(n):
+            runner()
+        return bufs["loss"][:n].clone()
+
+    def eager_batches(self, *arrays: torch.Tensor) -> torch.Tensor:
+        """The steps of :meth:`run_steps`, one plain ``train_step`` after
+        another on ``arrays`` themselves: the eager reference a graphed run
+        is held against. Returns the (n_batches,) losses on the device."""
+        return torch.stack([self.train_step(self.step_batch(dict(zip(self.step_arrays, rows))))
+                            for rows in zip(*arrays)])
+
+    def graph_report(self) -> str:
+        """Captures, replays and capture ms of each step graph."""
+        return "; ".join(
+            f"{key}: {g.captures} captures ({', '.join(f'{t:.1f}' for t in g.capture_ms)}"
+            f" ms), {g.replays} replays" for key, g in self._graphs.items() if g.graphed)
+
+    def _print_graph_report(self):
+        report = self.graph_report()
+        if report:
+            print(f"[graph] {self.model_name}: {report}")
+
+    def release_graphs(self):
+        """Free every step graph, its buffers and the gradients its capture
+        made, so that the memory pools go with the model."""
+        for runner in self._graphs.values():
+            runner.close()
+        self._graphs.clear()
+        self._static.clear()
+        if self.optimizer is not None:
+            self.optimizer.zero_grad(set_to_none=True)
 
     def epoch_rng(self, epoch: int, stream: int = 0) -> np.random.Generator:
         """Host RNG as a pure function of (seed, epoch, stream), the JAX
@@ -354,14 +498,55 @@ class _TrainStateMixin:
     def set_params(self, params: Dict[str, torch.Tensor]):
         """Install the full ``params`` (copied to the device as trainable
         leaves; under a mesh this rank's row blocks of the row-sharded ones,
-        base.py:445-449) and a fresh optimizer over them."""
+        base.py:445-449) and a fresh optimizer over them. Once a step graph
+        holds the params and Adam's state, they are written in place and
+        the state zeroed, which is a fresh Adam's state (zero moments,
+        step 0)."""
         params = {k: v.detach().to(self.device, torch.float32) for k, v in params.items()}
         if self.mesh is not None:
             self._sharded = frozenset(k for k, v in params.items()
                                       if mesh_lib.splits_rows(v, self.mesh))
             params = mesh_lib.shard_params(params, self.mesh)
+        if self._graphs:
+            if list(params) != list(self.params):
+                raise ValueError(f"set_params: keys {list(params)} are not the held "
+                                 f"params' {list(self.params)}")
+            with torch.no_grad():
+                for k, v in params.items():
+                    self.params[k].copy_(v)
+                for state in self.optimizer.state.values():
+                    for v in state.values():
+                        v.zero_()
+            return
         self.params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
         self.optimizer = self.make_optimizer(self.params)
+
+    def load_optimizer_state(self, states: Dict[int, Dict[str, Any]]):
+        """Adam's per-param state (by the params' position) from a
+        checkpoint: written into the live state tensors where they exist (a
+        step graph reads them), installed where they do not. The param
+        groups stay the live optimizer's (lr, and ``capturable`` on the
+        card), so a checkpoint of a non-capturable Adam, as the port wrote
+        before its steps were graphed, loads into a capturable one: the
+        step count goes to the device there, and stays on the CPU
+        otherwise."""
+        params = list(self.params.values())
+        capturable = bool(self.optimizer.defaults.get("capturable"))
+        with torch.no_grad():
+            for i, st in states.items():
+                p = params[int(i)]
+                live = self.optimizer.state[p]
+                for k, v in st.items():
+                    v = torch.as_tensor(v)
+                    if k == "step":
+                        v = v.to(device=p.device if capturable else "cpu", dtype=torch.float32)
+                    else:
+                        v = v.to(device=p.device,
+                                 dtype=p.dtype if v.is_floating_point() else v.dtype)
+                    if k in live:
+                        live[k].copy_(v)
+                    else:
+                        live[k] = v.clone()
 
     def _checkpoint_conf(self):
         ckpt_dir = self.config.get("checkpoint.dir")
@@ -426,6 +611,7 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
         self.aux: Dict[str, Any] = {}
         self._edges_dev = None
         self._trace = None  # the torch.profiler session profile.dir opened
+        self._init_graphs()
         self.mesh = self._build_mesh()
 
     # -- subclass contract ---------------------------------------------------
@@ -550,8 +736,8 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
             n_search_steps=self._n_search_steps)
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One step: negatives, loss and grads, Adam, step_update. Returns
-        the loss (a device scalar, detached)."""
+        """One step; the new aux written into ``self.aux`` in place.
+        Returns the loss (a device scalar, detached)."""
         neg = self.sample_negatives(batch["u"])
         full_batch = dict(batch, j=neg, aux=self.aux)
         self.optimizer.zero_grad(set_to_none=True)
@@ -559,15 +745,44 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
         loss.backward()
         self._optimizer_step()
         with torch.no_grad():
-            self.aux = self.step_update(self.params, aux, full_batch)
+            self.write_aux(self.step_update(self.params, aux, full_batch))
         return loss.detach()
 
+    def write_aux(self, aux: Dict[str, Any]):
+        """``aux``'s tensors copied into ``self.aux``'s, which a step graph
+        reads (BUIR's momentum targets, SelfCF's history)."""
+        if aux is self.aux:
+            return
+        if set(aux) != set(self.aux):
+            raise ValueError(f"aux keys {sorted(aux)} are not the held {sorted(self.aux)}")
+        with torch.no_grad():
+            for k, v in aux.items():
+                if v is not self.aux[k]:
+                    self.aux[k].copy_(v)
+
+    step_arrays = ("u", "i", "mask")
+
+    def step_batch(self, rows: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return rows
+
+    def epoch_steps(self) -> int:
+        return -(-self.data.n_edges // self.batch_size)
+
     def train_batches(self, users, items, masks) -> torch.Tensor:
-        """Run :meth:`train_step` over (n_batches, batch_size) tensors;
-        returns the (n_batches,) losses on the device."""
-        losses = [self.train_step({"u": u, "i": i, "mask": m})
-                  for u, i, m in zip(users, items, masks)]
-        return torch.stack(losses)
+        """:meth:`train_step` over (n_batches, batch_size) tensors through
+        the train graph (:meth:`run_steps`); returns the (n_batches,) losses
+        on the device."""
+        return self.run_steps(users, items, masks)
+
+    def begin_epoch(self, epoch: int):
+        """``self.aux`` from :meth:`epoch_setup`, and the train graph
+        dropped: ``epoch_setup`` may rebind layouts and views that the
+        captured step reads (SGL's and SEPT's dropped views, whose B and Bᵀ
+        K1's tensor maps hold), so every epoch warms up and captures its
+        step again."""
+        self.aux = self.epoch_setup(epoch)
+        if "train" in self._graphs:
+            self._graphs["train"].invalidate(warm=True)
 
     def epoch_batches(self, epoch: int):
         """This epoch's shuffled batches, drawn on the device from a generator
@@ -593,7 +808,7 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
 
     def run_epoch(self, epoch: int) -> np.ndarray:
         users, items, masks = self.epoch_batches(epoch)
-        self.aux = self.epoch_setup(epoch)
+        self.begin_epoch(epoch)
         return self.train_batches(users, items, masks).cpu().numpy()
 
     @torch.no_grad()
@@ -654,6 +869,7 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
             self._maybe_checkpoint(epoch)
         if self._trace is not None:
             self._stop_trace(self.config.get("profile.dir"))
+        self._print_graph_report()
         if self.best_user_emb is not None:
             self.user_emb, self.item_emb = self.best_user_emb, self.best_item_emb
 
@@ -784,6 +1000,7 @@ class TorchSequentialRecommender(_TrainStateMixin, SequentialRecommender):
         self.best_params: Optional[Dict[str, torch.Tensor]] = None
         self._train_arrays = self.data.padded_training_arrays(self.max_len)
         self._train_dev = None
+        self._init_graphs()
         self.mesh = self._build_mesh()
 
     def init_params(self, generator) -> Dict[str, torch.Tensor]:
@@ -810,6 +1027,9 @@ class TorchSequentialRecommender(_TrainStateMixin, SequentialRecommender):
                                 device=self.device),
                 torch.as_tensor(row_mask.reshape(n_batches, bs), device=self.device))
 
+    def graph_arm(self) -> str:
+        return "transformer"
+
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One step: negatives, loss and grads, Adam (base.py:844-855).
         Returns the loss (a device scalar, detached)."""
@@ -821,17 +1041,73 @@ class TorchSequentialRecommender(_TrainStateMixin, SequentialRecommender):
         self._optimizer_step()
         return loss.detach()
 
-    def train_batches(self, idx: torch.Tensor, row_masks: torch.Tensor) -> torch.Tensor:
-        """:meth:`train_step` over the batches of rows ``idx`` gathered on
-        the device; returns the (n_batches,) losses on the device."""
+    def _train_windows(self):
+        """The padded training windows on the device, copied once."""
         if self._train_dev is None:
             self._train_dev = tuple(torch.as_tensor(a, dtype=torch.int64, device=self.device)
                                     for a in self._train_arrays)
-        seq, pos, y, seq_len = self._train_dev
-        return torch.stack([
-            self.train_step({"seq": seq[i], "pos": pos[i], "y": y[i],
-                             "seq_len": seq_len[i], "row_mask": m})
-            for i, m in zip(idx, row_masks)])
+        return self._train_dev
+
+    def _batch(self, rows: torch.Tensor, row_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        seq, pos, y, seq_len = self._train_windows()
+        return {"seq": seq.index_select(0, rows), "pos": pos.index_select(0, rows),
+                "y": y.index_select(0, rows), "seq_len": seq_len.index_select(0, rows),
+                "row_mask": row_mask}
+
+    step_arrays = ("idx", "row_mask")
+
+    def step_batch(self, rows: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return self._batch(rows["idx"], rows["row_mask"])
+
+    def epoch_steps(self) -> int:
+        return -(-self._train_arrays[0].shape[0] // self.batch_size)
+
+    def train_batches(self, idx: torch.Tensor, row_masks: torch.Tensor) -> torch.Tensor:
+        """:meth:`train_step` over the batches of rows ``idx`` through the
+        train graph (:meth:`run_steps`), the windows gathered on the device;
+        returns the (n_batches,) losses on the device."""
+        self._train_windows()
+        return self.run_steps(idx, row_masks)
+
+    def _static_eval_block(self):
+        """One eval block (``batch.size`` test windows) at the device block
+        counter: scores, top-k, both written at its rows; the graph
+        ``_test_scan_jit``'s scan body becomes (base.py:733-759)."""
+        bufs = self._static["eval"]
+        seq, pos, seq_len = self._test_windows()
+        rows = bufs["ctr"] * self.batch_size + bufs["lanes"]
+        scores, ids = ranking.topk_scores_unmasked(
+            self.predict_scores(self.full_params(), seq.index_select(0, rows),
+                                pos.index_select(0, rows), seq_len.index_select(0, rows)),
+            self.max_N)
+        bufs["scores"].index_copy_(0, rows, scores)
+        bufs["ids"].index_copy_(0, rows, ids)
+        bufs["ctr"].add_(1)
+
+    @torch.no_grad()
+    def top_items(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The ranking of ``SequentialRecommender.top_items`` through the
+        eval graph, one call a block: a replay on the card, the same block
+        run eagerly on the CPU and under a mesh. That block loop stays the
+        eager reference the graphed ranking is held against."""
+        n_pad = self._test_windows()[0].shape[0]
+        bufs = self._static.get("eval")
+        if bufs is None or bufs["scores"].shape[0] != n_pad:
+            bufs = self._static["eval"] = {
+                "lanes": torch.arange(self.batch_size, device=self.device),
+                "ctr": torch.zeros(1, dtype=torch.int64, device=self.device),
+                "scores": torch.zeros((n_pad, self.max_N), dtype=torch.float32,
+                                      device=self.device),
+                "ids": torch.zeros((n_pad, self.max_N), dtype=torch.int64,
+                                   device=self.device)}
+            if "eval" in self._graphs:
+                self._graphs["eval"].invalidate(warm=False)
+        bufs["ctr"].zero_()
+        runner = self._runner("eval", self._static_eval_block, warmup=1)
+        for _ in range(n_pad // self.batch_size):
+            runner()
+        n = len(self.data.original_seq)
+        return bufs["scores"][:n].clone(), bufs["ids"][:n].clone()
 
     def run_epoch(self, epoch: int) -> np.ndarray:
         return self.train_batches(*self.epoch_batches(epoch)).cpu().numpy()
@@ -847,6 +1123,7 @@ class TorchSequentialRecommender(_TrainStateMixin, SequentialRecommender):
                 print("training:", epoch + 1, "batch", b, "rec_loss:", float(losses[b]))
             self.fast_evaluation(epoch)
             self._maybe_checkpoint(epoch)
+        self._print_graph_report()
         if self.best_params is not None:
             with torch.no_grad():
                 for k, v in self.best_params.items():

@@ -107,7 +107,8 @@ def ell_gather_sum(layout, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                          f"multiple of 4 and x aligned to 4 elements, got {c // p}")
     n_items, n_long = layout.item_dst.shape[0], layout.long_rows.shape[0]
     # calls on one layout run in the order of the current stream, so one
-    # partial buffer per width serves them all
+    # partial buffer per width serves them all; a step graph's eager
+    # warm-up makes it before any capture, so a replay finds it in place
     partial = layout.scratch.get(c)
     if partial is None:
         # every short row is one item, so the rest are the long rows' slots

@@ -128,11 +128,21 @@ def unique_with_mask(idx: torch.Tensor, size: int):
     ``jnp.unique(idx, size=size, fill_value=-1)`` followed by
     sampling.py:194-196: sorted distinct values (a ``-1`` in ``idx`` counts
     as a value), ``-1`` fill past them, invalid slots mapped to 0. Matches
-    the reference's ``torch.unique`` anchors (SimGCL.py:44-45)."""
-    uniq = torch.unique(idx)[:size]
-    fill = torch.full((size - uniq.numel(),), -1, dtype=idx.dtype,
-                      device=idx.device)
-    uniq = torch.cat([uniq, fill])
+    the reference's ``torch.unique`` anchors (SimGCL.py:44-45).
+
+    Static shapes, no device-to-host sync (a train step runs it inside a
+    CUDA graph): sort, flag the first of each run, number the runs with a
+    cumulative sum, and scatter each run's value into a ``size``-long
+    buffer of ``-1``; runs numbered ``size`` or more, and every repeat,
+    land in one extra slot that is cut off."""
+    uniq = torch.full((size + 1,), -1, dtype=idx.dtype, device=idx.device)
+    if idx.numel():
+        s = torch.sort(idx.reshape(-1)).values
+        first = torch.ones_like(s, dtype=torch.bool)
+        first[1:] = s[1:] != s[:-1]
+        slot = torch.cumsum(first, 0) - 1
+        uniq.scatter_(0, torch.where(first & (slot < size), slot, size), s)
+    uniq = uniq[:size]
     mask = uniq >= 0
     return torch.where(mask, uniq, torch.zeros_like(uniq)), mask
 

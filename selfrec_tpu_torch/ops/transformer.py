@@ -13,10 +13,14 @@ or ``scaled_dot_product_attention``: the packed in-projection ``w_in`` is
 stored (d, 3d) as the JAX package stores it, and the -inf mask, softmax
 and dropout on the attention weights run in the JAX package's order.
 
-The table lookups are ``F.embedding`` (no ``padding_idx``): its backward
-sums each row's duplicates as sorted segments, where advanced indexing's
-backward walks them one by one, and a batch of short sequences repeats the
-pad row thousands of times.
+The item table's lookups are ``F.embedding`` (no ``padding_idx``): its
+backward sums each row's duplicates as sorted segments, where advanced
+indexing's backward walks them one by one, and a batch of short sequences
+repeats the pad row thousands of times. The position table's is a one-hot
+product (:func:`position_rows`): on the card ``F.embedding``'s backward
+summed its rows, each repeated about once a sequence, in an order that
+changed from run to run, so two runs of one step differed in the last
+bits; the product's sums run in a fixed order.
 
 Params are one flat dict with the JAX tree's paths as dotted keys
 (``blocks.0.attn.w_in``; :mod:`selfrec_tpu_torch.convert`). Dropout is
@@ -125,6 +129,15 @@ def init_encoder_params(generator: torch.Generator, vocab_size: int, n_positions
     return flat
 
 
+def position_rows(pos: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[pos]`` as the product of ``pos``'s one-hot rows with the
+    (max.len + 1 or + 2, D) position table: exact forward (one nonzero
+    term a sum), and a backward that is a matrix product, whose sums run
+    in a fixed order on the card."""
+    ids = torch.arange(table.shape[0], device=pos.device)
+    return (pos[..., None] == ids).to(table.dtype) @ table
+
+
 def encode(params: Dict[str, torch.Tensor], seq: torch.Tensor, pos: torch.Tensor,
            n_heads: int, drop_rate: float, causal: bool, activation: str = "relu",
            generator: Optional[torch.Generator] = None,
@@ -133,7 +146,8 @@ def encode(params: Dict[str, torch.Tensor], seq: torch.Tensor, pos: torch.Tensor
     d = params["item_emb"].shape[1]
     n_blocks = n_blocks_of(params)
     keep = [None] * (2 * n_blocks + 1) if keep is None else keep
-    x = F.embedding(seq, params["item_emb"]) * math.sqrt(d) + F.embedding(pos, params["pos_emb"])
+    x = (F.embedding(seq, params["item_emb"]) * math.sqrt(d)
+         + position_rows(pos, params["pos_emb"]))
     x = dropout(x, drop_rate, generator, keep[0])
     timeline = (seq != 0)[..., None].to(x.dtype)
     x = x * timeline

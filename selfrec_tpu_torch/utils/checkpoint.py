@@ -4,7 +4,8 @@ The reference keeps its best embeddings in process memory only
 (reference/base/graph_recommender.py:91-95); the JAX package adds disk
 checkpoints through orbax, and this module does the same with
 ``torch.save``. A checkpoint is ``<dir>/step_<N>/state.pt``: the params,
-the optimizer's ``state_dict`` (Adam's moments and step count), the step
+the optimizer's ``state_dict`` (Adam's moments and step count; on the card
+a capturable Adam's, whose step count is a device tensor), the step
 generator's state, ``aux`` and the best-tracking state (with the best
 embeddings, or a sequential model's best params), every tensor on
 the CPU, loadable with ``torch.load(weights_only=True)``. An orbax
@@ -137,14 +138,23 @@ def apply_train_state(model, state: dict) -> None:
     rank's rows under a mesh) with a fresh optimizer over them in the
     model's key order (Adam's state maps to params by position), then the
     optimizer's state, the generator's (a CPU byte tensor, also for a CUDA
-    generator), aux and best."""
+    generator), aux and best. Once a step graph holds the params and
+    Adam's state, both are written in place (``set_params``,
+    ``load_optimizer_state``), and so is an aux with the live aux's keys
+    (``write_aux``). Adam's state
+    of a checkpoint written before the port's steps were graphed (a
+    non-capturable Adam, its step count on the CPU) loads into the
+    capturable Adam of the card."""
     model.set_params({k: state["params"][k] for k in model.params})
     keys = list(model.params)
-    opt = state["optimizer"]
-    model.optimizer.load_state_dict(dict(opt, state={
+    model.load_optimizer_state({
         i: model.shard_leaves(dict(st), [keys[i]] * len(st))
-        for i, st in opt["state"].items()}))
+        for i, st in state["optimizer"]["state"].items()})
     model.generator.set_state(state["generator"])
     if state["aux"]:
-        model.aux = _to(state["aux"], model.device)
+        aux = _to(state["aux"], model.device)
+        if set(aux) == set(model.aux):
+            model.write_aux(aux)
+        else:
+            model.aux = aux  # other keys: a new aux, which a step graph captures again
     _apply_best(model, state["best"])

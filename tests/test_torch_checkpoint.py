@@ -103,6 +103,84 @@ def test_resume_does_not_care_which_sampler_ran(tiny_graph_dataset, tmp_path, mo
     assert torch.equal(resumed.best_user_emb, full.best_user_emb)
 
 
+# How Adam's state may stand in a checkpoint of the port: as a
+# non-capturable Adam writes it (the CPU's, and the card's before the port's
+# steps ran as CUDA graphs), as the card's capturable Adam writes it, and
+# with the step count in another float type
+ADAM_FORMS = ("non-capturable", "capturable", "float64-step")
+
+
+@pytest.mark.parametrize("form", ADAM_FORMS)
+def test_resume_from_each_adam_form_equals_a_continuous_run(tiny_graph_dataset, tmp_path,
+                                                            monkeypatch, form):
+    """A checkpoint whose Adam state says another ``capturable`` than the
+    live optimizer, or holds its step in float64, loads: the live
+    optimizer's param groups stay, the state goes into them, and the
+    resumed run equals the continuous one exactly, aux included."""
+    for k, v in CASES["SelfCF-bf16"][1].items():
+        monkeypatch.setenv(k, v)
+    full = _run(tiny_graph_dataset, _conf(tmp_path / "full", "SelfCF-bf16", 4))
+    _run(tiny_graph_dataset, _conf(tmp_path, "SelfCF-bf16", 2))
+    path = tmp_path / "ckpt" / "step_2" / ckpt.STATE_FILE
+    state = torch.load(path, weights_only=True)
+    for group in state["optimizer"]["param_groups"]:
+        group["capturable"] = form == "capturable"
+    if form == "float64-step":
+        for st in state["optimizer"]["state"].values():
+            st["step"] = st["step"].double()
+    torch.save(state, path)
+    resumed = _run(tiny_graph_dataset, _conf(tmp_path, "SelfCF-bf16", 4))
+    assert not resumed.optimizer.defaults["capturable"]
+    assert all(not g["capturable"] for g in resumed.optimizer.param_groups)
+    for k in full.params:
+        assert torch.equal(resumed.params[k], full.params[k]), k
+    for k in full.aux:
+        assert torch.equal(resumed.aux[k], full.aux[k]), k
+    for a, b in zip(resumed.optimizer.state_dict()["state"].values(),
+                    full.optimizer.state_dict()["state"].values()):
+        assert a["step"].dtype == torch.float32 and float(a["step"]) == float(b["step"])
+        assert torch.equal(a["exp_avg"], b["exp_avg"])
+        assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+
+
+@pytest.mark.cuda
+def test_a_non_capturable_checkpoint_loads_into_the_cards_capturable_adam(tmp_path):
+    """On the card the port's Adam is capturable (its steps run as CUDA
+    graphs). A card checkpoint of a non-capturable Adam, as the port wrote
+    them before, loads: the step count moves to the device, the moments
+    and params are the checkpoint's, and the resumed graphed epoch matches
+    the old optimizer's eager epoch within rtol 1e-5 / atol 1e-6 (the
+    capturable Adam computes its bias correction on the device, which may
+    differ in the last bits). Run with ``python -m pytest --noconftest -m
+    cuda tests/test_torch_checkpoint.py`` on a machine with the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from selfrec_tpu_torch.utils.synth import synth_graph_mapped
+
+    train, test = synth_graph_mapped(40, 60, 400, seed=7)
+    old = get_model_class("MF")(_conf(tmp_path, "MF", 3), train, test, device="cuda")
+    old.build()
+    old.optimizer = torch.optim.Adam(list(old.params.values()), lr=old.lrate,
+                                     betas=(0.9, 0.999), eps=1e-8)
+    for epoch in range(2):
+        old.eager_batches(*old.epoch_batches(epoch))
+    ckpt.save_checkpoint(str(tmp_path / "ckpt"), 2, ckpt.train_state(old))
+    model = get_model_class("MF")(_conf(tmp_path, "MF", 3), train, test, device="cuda")
+    model.build()
+    assert model._maybe_resume() == 2
+    assert model.optimizer.defaults["capturable"]
+    for (k, p), q in zip(model.params.items(), old.params.values()):
+        assert torch.equal(p.detach(), q.detach()), k
+        st, want = model.optimizer.state[p], old.optimizer.state[q]
+        assert st["step"].device.type == "cuda" and float(st["step"]) == float(want["step"])
+        assert torch.equal(st["exp_avg"], want["exp_avg"])
+    old.eager_batches(*old.epoch_batches(2))
+    model.train_batches(*model.epoch_batches(2))
+    assert model._graphs["train"].captures == 1
+    for (k, p), q in zip(model.params.items(), old.params.values()):
+        assert torch.allclose(p.detach(), q.detach(), rtol=1e-5, atol=1e-6), k
+
+
 def test_checkpoint_preserves_best_tracking(tiny_graph_dataset, tmp_path):
     """As tests/test_checkpoint.py:61-78: best_performance and the best
     embeddings survive resume."""
