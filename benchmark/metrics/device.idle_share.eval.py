@@ -1,0 +1,10 @@
+"""device.idle_share.eval: the share of the traced window, whole evals, in
+which no kernel, copy or memset ran on the card. From the profiler's
+trace (union of device intervals)."""
+
+
+def read(run):
+    tr = run.trace
+    if not tr or run.rec["epochs"] or not run.rec["evals_s"] or not tr.get("busy_s"):
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
