@@ -1046,8 +1046,7 @@ def ncl_estep(model):
     return times
 
 
-def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, side=None,
-               atomics=None):
+def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, atomics=None):
     """The trainer's step over the first ``n_batches`` batches of epoch 0,
     after epoch_setup, with ``counter`` (a kernel wrapper, or a tuple of
     them whose counts add) set to 0 just before and read just after. The
@@ -1055,15 +1054,12 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, s
     ``GRAPH_WARMUP`` eagerly as the step graph's warm-up, then the capture,
     then replays. Checks finite losses and the launch count (exactly
     ``per_step`` a step, 0 included, or at least one), replays included.
-    ``side`` (a counter and its launches a step) is a second count of the
-    same run, checked exactly too (K1 float's operand pass). Then the eager
-    twin (:func:`twin_gate`, ``atomics`` as there) over the next
-    ``TWIN_STEPS`` batches, and ``profile_steps`` graphed steps under the
-    profiler. Returns the launches and the graphed ms/step of the replays."""
+    Then the eager twin (:func:`twin_gate`, ``atomics`` as there) over the
+    next ``TWIN_STEPS`` batches, and ``profile_steps`` graphed steps under
+    the profiler. Returns the launches and the graphed ms/step of the replays."""
     import torch
 
     counters = counter if isinstance(counter, tuple) else (counter,)
-    counters_reset = counters + ((side[0],) if side is not None else ())
     users, items, masks = model.epoch_batches(0)
     torch.cuda.synchronize()
     t_setup = time.time()
@@ -1074,7 +1070,7 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, s
     w = GRAPH_WARMUP + 1  # the warm-up steps and the captured one
     replays0 = model._graphs["train"].replays if "train" in model._graphs else 0
     torch.cuda.synchronize()
-    for c in counters_reset:
+    for c in counters:
         c.launches = 0
     t0 = time.time()
     first = model.train_batches(users[:w], items[:w], masks[:w])
@@ -1091,9 +1087,6 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, s
     if (launches != per_step * m) if per_step is not None else launches <= 0:
         raise RuntimeError(f"{tag} train: {launches} kernel launches in {m} steps, "
                            f"expected {'some' if per_step is None else per_step} a step")
-    if side is not None and side[0].launches != side[1] * m:
-        raise RuntimeError(f"{tag} train: {side[0].launches} side launches in {m} steps, "
-                           f"expected {side[1]} a step")
     eager = model.step_graph_eager_reason()  # a mesh: eager by rule
     runner = model._graphs.get("train")
     if eager is None and (runner is None or not runner.graphed
@@ -1107,9 +1100,8 @@ def train_path(tag, model, counter, n_batches, per_step=None, profile_steps=0, s
         f"{m * model.batch_size / (t2 - t0):.1f} examples/s (first {w} steps, {first_how}, "
         f"{1e3 * (t1 - t0):.1f} ms; steps {w + 1}..{m} "
         f"{'replayed' if eager is None else 'eager'}: {step_ms:.2f} ms/step, "
-        f"{(m - w) * model.batch_size / (t2 - t1):.1f} examples/s), launches {launches}"
-        f"{'' if side is None else f' (side {side[0].launches})'}; epoch_setup "
-        f"{setup_ms:.1f} ms; graph {model.graph_report() or 'none'}")
+        f"{(m - w) * model.batch_size / (t2 - t1):.1f} examples/s), launches {launches}; "
+        f"epoch_setup {setup_ms:.1f} ms; graph {model.graph_report() or 'none'}")
     if eager is None:
         twin = slice(m, m + TWIN_STEPS)
         twin_gate(tag, model, (users[twin], items[twin], masks[twin]), atomics)
@@ -2949,8 +2941,7 @@ def main():
         model = yelp_model(SelfCF, "SelfCF", SELFCF, data, dense=True)
     k1f_paths["selfcf_train"], _ = train_path(
         "SelfCF bf16", model, k1_float, N_TRAIN_BATCHES, per_step=2 * model.n_layers,
-        profile_steps=N_PROFILE_STEPS,
-        side=(dense_dual.float_operand, 2 * 2 * model.n_layers))  # two operands a launch
+        profile_steps=N_PROFILE_STEPS)
     k1f_paths["selfcf_eval"] = eval_path("SelfCF bf16", model, k1_float, width=128)
     free(model)
     del model
@@ -2959,7 +2950,7 @@ def main():
         model = yelp_model(BUIR, "BUIR", BUIR_CONF, data, dense=True)
     k1f_paths["buir_train"], _ = train_path(
         "BUIR bf16", model, k1_float, N_SHORT_BATCHES, per_step=3 * model.n_layers,
-        profile_steps=N_PROFILE_STEPS, side=(dense_dual.float_operand, 2 * 3 * model.n_layers))
+        profile_steps=N_PROFILE_STEPS)
     k1f_paths["buir_eval"] = eval_path("BUIR bf16", model, k1_float, width=128)
     free(model)
     del model

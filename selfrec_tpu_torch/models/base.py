@@ -36,6 +36,11 @@ and the sharded adjacency's slice; every rank gathers the params over
 ``model`` and computes the same loss, the propagations run sharded, and the
 gradients are averaged over the replicas before Adam, so that they stay
 bit-identical.
+
+Spans (:mod:`selfrec_tpu_torch.utils.trace`, whose record each
+recommender's constructor starts afresh) mark the set-up (``setup.*``),
+each epoch's runner (``runner.*``) and the eval (``rank.*``,
+``metrics.*``); none runs inside a step.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from selfrec_tpu_torch.ops.init import xavier_uniform
 from selfrec_tpu_torch.ops.precision import set_compute_dtype
 from selfrec_tpu_torch.parallel import distributed
 from selfrec_tpu_torch.parallel import mesh as mesh_lib
-from selfrec_tpu_torch.utils import metrics
+from selfrec_tpu_torch.utils import metrics, trace
 from selfrec_tpu_torch.utils.cuda_graph import CudaGraph, StepGraph
 from selfrec_tpu_torch.utils.logger import Log
 
@@ -70,6 +75,7 @@ class Recommender:
     """
 
     def __init__(self, conf, training_set, test_set, device=None, **kwargs):
+        trace.reset()
         self.config = conf
         device = resolve_device(device)
         distributed.maybe_initialize(conf, device)
@@ -157,27 +163,28 @@ class _FastEvalMixin:
     def fast_evaluation(self, epoch: int):
         print("Evaluating the model...")
         measure = self._fast_measure()
-        performance = metrics.parse_measure(measure)
+        with trace.span("metrics.record"):
+            performance = metrics.parse_measure(measure)
 
-        if self.best_performance:
-            count = sum(
-                1 if self.best_performance[1][k] > performance[k] else -1
-                for k in performance
-            )
-            if count < 0:
+            if self.best_performance:
+                count = sum(
+                    1 if self.best_performance[1][k] > performance[k] else -1
+                    for k in performance
+                )
+                if count < 0:
+                    self.best_performance = [epoch + 1, performance]
+                    self.save()
+            else:
                 self.best_performance = [epoch + 1, performance]
                 self.save()
-        else:
-            self.best_performance = [epoch + 1, performance]
-            self.save()
 
-        print("-" * 80)
-        print(f"Real-Time Ranking Performance (Top-{self.max_N} Item Recommendation)")
-        measure_str = ", ".join(f"{k}: {v}" for k, v in performance.items())
-        print(f"*Current Performance*\nEpoch: {epoch + 1}, {measure_str}")
-        bp = ", ".join(f"{k}: {v}" for k, v in self.best_performance[1].items())
-        print(f"*Best Performance*\nEpoch: {self.best_performance[0]}, {bp}")
-        print("-" * 80)
+            print("-" * 80)
+            print(f"Real-Time Ranking Performance (Top-{self.max_N} Item Recommendation)")
+            measure_str = ", ".join(f"{k}: {v}" for k, v in performance.items())
+            print(f"*Current Performance*\nEpoch: {epoch + 1}, {measure_str}")
+            bp = ", ".join(f"{k}: {v}" for k, v in self.best_performance[1].items())
+            print(f"*Best Performance*\nEpoch: {self.best_performance[0]}, {bp}")
+            print("-" * 80)
         return measure
 
 
@@ -193,7 +200,8 @@ class GraphRecommender(_FastEvalMixin, Recommender):
 
     def __init__(self, conf, training_set, test_set, device=None, **kwargs):
         super().__init__(conf, training_set, test_set, device=device, **kwargs)
-        self.data = Interaction(conf, training_set, test_set)
+        with trace.span("setup.data"):
+            self.data = Interaction(conf, training_set, test_set)
         self.best_performance: list = []
         self.topN = [int(n) for n in self.ranking_topns]
         self.max_N = max(self.topN)
@@ -412,6 +420,7 @@ class _TrainStateMixin:
         runner.track(self.optimizer, getattr(self, "aux", None), self.params)
         return runner
 
+    @trace.span("runner.buffers")
     def _static_buffers(self, arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Persistent buffers that the train graph reads, holding ``arrays``
         (each (n_batches, ...)) in their first rows, a device step counter
@@ -456,8 +465,9 @@ class _TrainStateMixin:
         bufs = self._static_buffers(dict(zip(self.step_arrays, arrays)))
         runner = self._runner("train", self._static_step, (self.generator,))
         n = arrays[0].shape[0]
-        for _ in range(n):
-            runner()
+        with trace.span("runner.replays"):
+            for _ in range(n):
+                runner()
         return bufs["loss"][:n].clone()
 
     def eager_batches(self, *arrays: torch.Tensor) -> torch.Tensor:
@@ -495,6 +505,7 @@ class _TrainStateMixin:
         packages."""
         return np.random.default_rng((self.seed, epoch, stream))
 
+    @trace.span("setup.params")
     def set_params(self, params: Dict[str, torch.Tensor]):
         """Install the full ``params`` (copied to the device as trainable
         leaves; under a mesh this rank's row blocks of the row-sharded ones,
@@ -644,6 +655,7 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
         that reads them gathers them with :meth:`gather_leaves`."""
         return aux
 
+    @trace.span("setup.adj")
     def make_adj(self, scipy_norm_adj=None):
         """Device adjacency for the unified Laplacian (``data.norm_adj`` by
         default): the dense-bipartite block where ``SELFREC_TPU_DENSE`` and
@@ -705,10 +717,15 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
 
     # -- machinery ------------------------------------------------------------
     def build(self):
-        self.set_params(self.init_params(self.generator))
-        # the rated CSR on the device, and the packed-bitmap sampler when
-        # the (U, ceil(I/32)) uint32 bitmap fits SELFREC_TPU_NEG_BITMAP_MB
-        # (base.py:453-471); else the CSR binary-search sampler
+        with trace.span("setup.params"):
+            self.set_params(self.init_params(self.generator))
+        with trace.span("setup.sampler"):
+            self._build_sampler()
+
+    def _build_sampler(self):
+        """The rated CSR on the device, and the packed-bitmap sampler when
+        the (U, ceil(I/32)) uint32 bitmap fits ``SELFREC_TPU_NEG_BITMAP_MB``
+        (base.py:453-471); else the CSR binary-search sampler."""
         self._rated_items = torch.as_tensor(self.data.rated_items, device=self.device)
         self._rated_offsets = torch.as_tensor(self.data.rated_offsets, device=self.device)
         max_deg = int(self.data.rated_counts().max()) if self.data.user_num else 1
@@ -774,6 +791,7 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
         on the device."""
         return self.run_steps(users, items, masks)
 
+    @trace.span("runner.epoch_setup")
     def begin_epoch(self, epoch: int):
         """``self.aux`` from :meth:`epoch_setup`, and the train graph
         dropped: ``epoch_setup`` may rebind layouts and views that the
@@ -784,6 +802,7 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
         if "train" in self._graphs:
             self._graphs["train"].invalidate(warm=True)
 
+    @trace.span("runner.batches")
     def epoch_batches(self, epoch: int):
         """This epoch's shuffled batches, drawn on the device from a generator
         seeded as a pure function of (seed, epoch); with
@@ -809,9 +828,12 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
     def run_epoch(self, epoch: int) -> np.ndarray:
         users, items, masks = self.epoch_batches(epoch)
         self.begin_epoch(epoch)
-        return self.train_batches(users, items, masks).cpu().numpy()
+        losses = self.train_batches(users, items, masks)
+        with trace.span("runner.loss_read"):
+            return losses.cpu().numpy()
 
     @torch.no_grad()
+    @trace.span("rank.embeddings")
     def embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.compute_embeddings(self.full_params())
 
@@ -896,7 +918,8 @@ class SequentialRecommender(_FastEvalMixin, Recommender):
 
     def __init__(self, conf, training_set, test_set, device=None, **kwargs):
         super().__init__(conf, training_set, test_set, device=device, **kwargs)
-        self.data = Sequence(conf, training_set, test_set)
+        with trace.span("setup.data"):
+            self.data = Sequence(conf, training_set, test_set)
         self.max_len = int(conf["max.len"])
         self.best_performance: list = []
         self.topN = [int(n) for n in self.ranking_topns]
@@ -951,22 +974,24 @@ class SequentialRecommender(_FastEvalMixin, Recommender):
         """:meth:`top_items` as {sequence: [(item, score), ...]}, pad and
         out-of-vocabulary ids dropped (base.py:767-787)."""
         scores, ids = self.top_items()
-        scores, ids = scores.double().cpu().numpy(), ids.cpu().numpy()
-        n = ids.shape[0]
-        # pad/oov ids are filtered AFTER top-k, so lists may be short
-        # (reference quirk, base/seq_recommender.py:47-50)
-        keep = (ids > 0) & (ids <= self.data.item_num)
-        item_names = ranking._cached_names(
-            self.data, "_item_names_arr", self.data.id2item, self.data.item_num + 1)
-        name_rows = item_names[np.where(keep, ids, 0)].tolist()
-        score_rows = scores.tolist()
-        keep_rows = keep.tolist()
-        rec_list: Dict[str, list] = {}
-        for r in range(n):
-            rec_list[self.data.original_seq[r][0]] = [
-                (nm, sc) for nm, sc, kp in zip(name_rows[r], score_rows[r], keep_rows[r])
-                if kp]
-        return rec_list
+        with trace.span("rank.copy"):
+            scores, ids = scores.double().cpu().numpy(), ids.cpu().numpy()
+        with trace.span("metrics.lists"):
+            n = ids.shape[0]
+            # pad/oov ids are filtered AFTER top-k, so lists may be short
+            # (reference quirk, base/seq_recommender.py:47-50)
+            keep = (ids > 0) & (ids <= self.data.item_num)
+            item_names = ranking._cached_names(
+                self.data, "_item_names_arr", self.data.id2item, self.data.item_num + 1)
+            name_rows = item_names[np.where(keep, ids, 0)].tolist()
+            score_rows = scores.tolist()
+            keep_rows = keep.tolist()
+            rec_list: Dict[str, list] = {}
+            for r in range(n):
+                rec_list[self.data.original_seq[r][0]] = [
+                    (nm, sc) for nm, sc, kp in zip(name_rows[r], score_rows[r], keep_rows[r])
+                    if kp]
+            return rec_list
 
     def evaluate(self, rec_list):
         return 0
@@ -998,7 +1023,8 @@ class TorchSequentialRecommender(_TrainStateMixin, SequentialRecommender):
         self.generator.manual_seed(self.seed)
         self.optimizer = None
         self.best_params: Optional[Dict[str, torch.Tensor]] = None
-        self._train_arrays = self.data.padded_training_arrays(self.max_len)
+        with trace.span("setup.data"):
+            self._train_arrays = self.data.padded_training_arrays(self.max_len)
         self._train_dev = None
         self._init_graphs()
         self.mesh = self._build_mesh()
@@ -1010,8 +1036,10 @@ class TorchSequentialRecommender(_TrainStateMixin, SequentialRecommender):
         raise NotImplementedError
 
     def build(self):
-        self.set_params(self.init_params(self.generator))
+        with trace.span("setup.params"):
+            self.set_params(self.init_params(self.generator))
 
+    @trace.span("runner.batches")
     def epoch_batches(self, epoch: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(n_batches, batch_size) row indices and row masks on the device:
         the permutation of ``epoch_rng(epoch)``, the last batch padded with
@@ -1110,7 +1138,9 @@ class TorchSequentialRecommender(_TrainStateMixin, SequentialRecommender):
         return bufs["scores"][:n].clone(), bufs["ids"][:n].clone()
 
     def run_epoch(self, epoch: int) -> np.ndarray:
-        return self.train_batches(*self.epoch_batches(epoch)).cpu().numpy()
+        losses = self.train_batches(*self.epoch_batches(epoch))
+        with trace.span("runner.loss_read"):
+            return losses.cpu().numpy()
 
     def train(self):
         """Resume, then per epoch: the epoch, every 50th batch's loss, eval

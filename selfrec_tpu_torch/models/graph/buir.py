@@ -33,6 +33,7 @@ from selfrec_tpu_torch.ops.graph import (adj_dropout, lightgcn_propagate, spmm_p
                                          supports_packed)
 from selfrec_tpu_torch.ops.init import layer_params, linear_apply, torch_linear_params
 from selfrec_tpu_torch.ops.losses import l2_normalize
+from selfrec_tpu_torch.utils import trace
 
 
 def set_valid_rows(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
@@ -64,8 +65,9 @@ class BUIR(TorchGraphRecommender):
             # ELL, as a halo layout, under a mesh (buir.py:38-46)
             from selfrec_tpu_torch.ops.graph import norm_adj_from_scipy
 
-            self.adj = self.shard_adj(norm_adj_from_scipy(self.data.norm_adj,
-                                                          device=self.device))
+            with trace.span("setup.adj"):
+                self.adj = self.shard_adj(norm_adj_from_scipy(self.data.norm_adj,
+                                                              device=self.device))
 
     def init_params(self, generator):
         params = super().init_params(generator)

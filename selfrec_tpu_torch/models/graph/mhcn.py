@@ -43,6 +43,7 @@ from selfrec_tpu_torch.ops.graph import (dense_general_available, norm_adj_from_
 from selfrec_tpu_torch.ops.init import xavier_uniform
 from selfrec_tpu_torch.ops.losses import l2_loss, l2_normalize
 from selfrec_tpu_torch.ops.spmm_dense import DenseMat, _generic_dtype, fits_dense_elems
+from selfrec_tpu_torch.utils import trace
 
 N_CHANNELS = 4
 
@@ -53,28 +54,30 @@ class MHCN(TorchGraphRecommender):
         args = conf[self.model_name] if conf.contain(self.model_name) else {}
         self.n_layers = int(args.get("n_layer", 2))
         self.ss_rate = float(args.get("ss_rate", 0.01))
-        self.social_data = Relation(conf, kwargs["social.data"], self.data.user)
+        with trace.span("setup.data"):
+            self.social_data = Relation(conf, kwargs["social.data"], self.data.user)
 
-        nu, ni = self.data.user_num, self.data.item_num
-        # the AGGREGATE resident set (three U x U channels, R and R^T) against
-        # the budget, as the JAX package gates it
-        dg = (dense_general_available(nu, nu, self.device)
-              and fits_dense_elems(3 * nu * nu + 2 * nu * ni, _generic_dtype()))
-        social = self.social_data.get_social_mat()
-        if dg:
-            h_dense = mhcn_hypergraphs_device(social, self.data.interaction_mat,
-                                              self.device)
-            self.H = []
-            while h_dense:  # each f32 block freed once its copy is made
-                self.H.append(self.shard_adj(DenseMat(h_dense.pop(0).to(_generic_dtype()))))
-        else:
-            self.H = [self.shard_adj(norm_adj_from_scipy(h, device=self.device))
-                      for h in mhcn_hypergraphs(social, self.data.interaction_mat)]
-        r_norm = normalize_graph_mat(self.data.interaction_mat)  # D^-1 R
-        self.R = self.shard_adj(norm_adj_from_scipy(r_norm, device=self.device,
-                                                    dense_general=dg))
-        self.Rt = self.shard_adj(norm_adj_from_scipy(r_norm.T.tocsr(), device=self.device,
-                                                     dense_general=dg))
+        with trace.span("setup.adj"):
+            nu, ni = self.data.user_num, self.data.item_num
+            # the AGGREGATE resident set (three U x U channels, R and R^T) against
+            # the budget, as the JAX package gates it
+            dg = (dense_general_available(nu, nu, self.device)
+                  and fits_dense_elems(3 * nu * nu + 2 * nu * ni, _generic_dtype()))
+            social = self.social_data.get_social_mat()
+            if dg:
+                h_dense = mhcn_hypergraphs_device(social, self.data.interaction_mat,
+                                                  self.device)
+                self.H = []
+                while h_dense:  # each f32 block freed once its copy is made
+                    self.H.append(self.shard_adj(DenseMat(h_dense.pop(0).to(_generic_dtype()))))
+            else:
+                self.H = [self.shard_adj(norm_adj_from_scipy(h, device=self.device))
+                          for h in mhcn_hypergraphs(social, self.data.interaction_mat)]
+            r_norm = normalize_graph_mat(self.data.interaction_mat)  # D^-1 R
+            self.R = self.shard_adj(norm_adj_from_scipy(r_norm, device=self.device,
+                                                        dense_general=dg))
+            self.Rt = self.shard_adj(norm_adj_from_scipy(r_norm.T.tocsr(), device=self.device,
+                                                         dense_general=dg))
 
     def print_model_info(self):
         super().print_model_info()

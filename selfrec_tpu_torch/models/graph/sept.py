@@ -54,6 +54,7 @@ from selfrec_tpu_torch.ops.sampling import unique_with_mask
 from selfrec_tpu_torch.ops.spmm_dense import (DenseAdj, DenseMat, _generic_dtype,
                                               adj_edge_perm, fits_dense_elems)
 from selfrec_tpu_torch.parallel.dense_shard import ShardedDenseAdj
+from selfrec_tpu_torch.utils import trace
 
 SS_TEMP = 0.1  # hardcoded in reference SEPT.py:130-131
 
@@ -66,48 +67,50 @@ class SEPT(TorchGraphRecommender):
         self.ss_rate = float(args.get("ss_rate", 0.005))
         self.drop_rate = float(args.get("drop_rate", 0.3))
         self.instance_cnt = int(args.get("ins_cnt", 10))
-        self.social_data = Relation(conf, kwargs["social.data"], self.data.user)
+        with trace.span("setup.data"):
+            self.social_data = Relation(conf, kwargs["social.data"], self.data.user)
 
-        self.adj = self.make_adj()
-        self._edge_users_dev = torch.as_tensor(self.data.edge_users, device=self.device)
-        self._edge_items_dev = torch.as_tensor(self.data.edge_items, device=self.device)
-        self._social_template = self._social_w_stack = None
-        self._view_template = self._w_rec = None
-        self._social_d1 = self._social_d2 = self._aug_view = None
+        with trace.span("setup.adj"):
+            self.adj = self.make_adj()
+            self._edge_users_dev = torch.as_tensor(self.data.edge_users, device=self.device)
+            self._edge_items_dev = torch.as_tensor(self.data.edge_items, device=self.device)
+            self._social_template = self._social_w_stack = None
+            self._view_template = self._w_rec = None
+            self._social_d1 = self._social_d2 = self._aug_view = None
 
-        nu = self.data.user_num
-        bi_social = self.social_data.get_birectional_social_mat()
-        # both resident U x U views against the budget together
-        if (dense_general_available(nu, nu, self.device)
-                and fits_dense_elems(2 * nu * nu, _generic_dtype())):
-            v1, v2 = sept_views_device(bi_social, self.data.interaction_mat, nu,
-                                       self.device)
-            self._social_d1 = self.shard_adj(DenseMat(v1.to(_generic_dtype())))
-            del v1
-            self._social_d2 = self.shard_adj(DenseMat(v2.to(_generic_dtype())))
-            del v2
-        else:
-            views = sept_views(bi_social, self.data.interaction_mat, nu)
-            template, self._social_w_stack = union_ell_template(list(views),
-                                                                device=self.device)
-            self._social_template = self.shard_adj(template)
+            nu = self.data.user_num
+            bi_social = self.social_data.get_birectional_social_mat()
+            # both resident U x U views against the budget together
+            if (dense_general_available(nu, nu, self.device)
+                    and fits_dense_elems(2 * nu * nu, _generic_dtype())):
+                v1, v2 = sept_views_device(bi_social, self.data.interaction_mat, nu,
+                                           self.device)
+                self._social_d1 = self.shard_adj(DenseMat(v1.to(_generic_dtype())))
+                del v1
+                self._social_d2 = self.shard_adj(DenseMat(v2.to(_generic_dtype())))
+                del v2
+            else:
+                views = sept_views(bi_social, self.data.interaction_mat, nu)
+                template, self._social_w_stack = union_ell_template(list(views),
+                                                                    device=self.device)
+                self._social_template = self.shard_adj(template)
 
-        if self._dense_views():
-            # the block's edge order (scipy COO of norm_adj) differs from the
-            # dataset's, in which the keep mask is drawn
-            self._edge_perm = torch.as_tensor(
-                adj_edge_perm(self.adj, self.data.edge_users, self.data.edge_items,
-                              self.data.item_num), device=self.device).long()
-        else:
-            self._view_template = self.shard_adj(build_bipartite_ell_template(
-                self.data.edge_users, self.data.edge_items, nu, self.data.item_num,
-                device=self.device))
-            # clean-graph weights over the template (== norm_adj's), so the
-            # rec chain shares the template's layout with the dropped view
-            self._w_rec = bipartite_renorm_weights(
-                self._edge_users_dev, self._edge_items_dev,
-                torch.ones(self.data.n_edges, dtype=torch.bool, device=self.device),
-                nu, self.data.item_num)
+            if self._dense_views():
+                # the block's edge order (scipy COO of norm_adj) differs from the
+                # dataset's, in which the keep mask is drawn
+                self._edge_perm = torch.as_tensor(
+                    adj_edge_perm(self.adj, self.data.edge_users, self.data.edge_items,
+                                  self.data.item_num), device=self.device).long()
+            else:
+                self._view_template = self.shard_adj(build_bipartite_ell_template(
+                    self.data.edge_users, self.data.edge_items, nu, self.data.item_num,
+                    device=self.device))
+                # clean-graph weights over the template (== norm_adj's), so the
+                # rec chain shares the template's layout with the dropped view
+                self._w_rec = bipartite_renorm_weights(
+                    self._edge_users_dev, self._edge_items_dev,
+                    torch.ones(self.data.n_edges, dtype=torch.bool, device=self.device),
+                    nu, self.data.item_num)
         self._joint_phase = False
 
     def _dense_views(self) -> bool:

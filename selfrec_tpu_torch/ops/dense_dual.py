@@ -181,8 +181,7 @@ def float_operand_plain(x: torch.Tensor, plan: WidthPlan) -> torch.Tensor:
 def float_operand(x: torch.Tensor, plan: WidthPlan) -> torch.Tensor:
     """:func:`float_operand_plain`'s result, bit for bit: the plain version
     for a CPU tensor, one pass of ``float_operand_kernel`` (split, pad,
-    permute and transpose fused) for a CUDA tensor, counted in
-    ``float_operand.launches``."""
+    permute and transpose fused) for a CUDA tensor."""
     if x.device.type == "cpu":
         return float_operand_plain(x, plan)
     lib = cuda_build.hopper_library(x.device, _ready, _load, "dual_matmul")
@@ -197,11 +196,7 @@ def float_operand(x: torch.Tensor, plan: WidthPlan) -> torch.Tensor:
             out.data_ptr(), plan.x_width, n_pad, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dual_matmul operand pass launch failed: error {rc}")
-    float_operand.launches += 1
     return out
-
-
-float_operand.launches = 0
 
 
 def dual_matmul_plain(b: torch.Tensor, xu: torch.Tensor,

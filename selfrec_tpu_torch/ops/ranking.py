@@ -22,6 +22,12 @@ by the lowest index, as ``lax.top_k`` does (:func:`topk_lowest_index`);
 the embedding evals (:func:`topk_ids_from_embeddings`,
 :func:`rec_list_from_embeddings`) keep ``torch.topk``, whose tie order is
 unspecified, since continuous embedding scores do not tie in practice.
+
+Spans (:mod:`selfrec_tpu_torch.utils.trace`): ``setup.eval_plan`` where
+the plan or the resident mask is built; in the all-blocks scan
+``rank.blocks`` (enqueueing every block) and ``rank.copy`` (the ids to the
+host), and each block's ``rank.score`` (scores and mask) and ``rank.topk``
+as device spans.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from selfrec_tpu_torch.utils import trace
 
 MASK_VALUE = -1e9  # reference masks rated items with -10e8
 
@@ -86,14 +94,15 @@ def get_rated_dense(data, device) -> Optional[torch.Tensor]:
         return cached
     if mode != "dense" and not fits_dense(data.user_num, data.item_num, torch.int8):
         return None
-    counts = np.diff(np.asarray(data.rated_offsets))
-    rows = torch.as_tensor(np.repeat(np.arange(data.user_num, dtype=np.int64),
-                                     counts), device=device)
-    cols = torch.as_tensor(np.asarray(data.rated_items, dtype=np.int64),
-                           device=device)
-    m = torch.zeros((data.user_num, data.item_num), dtype=torch.int8,
-                    device=device)
-    m[rows, cols] = 1
+    with trace.span("setup.eval_plan"):
+        counts = np.diff(np.asarray(data.rated_offsets))
+        rows = torch.as_tensor(np.repeat(np.arange(data.user_num, dtype=np.int64),
+                                         counts), device=device)
+        cols = torch.as_tensor(np.asarray(data.rated_items, dtype=np.int64),
+                               device=device)
+        m = torch.zeros((data.user_num, data.item_num), dtype=torch.int8,
+                        device=device)
+        m[rows, cols] = 1
     data._rated_dense_cache = m
     return m
 
@@ -228,8 +237,9 @@ def get_eval_plan(data, block_size: int, device) -> EvalPlan:
     key = (block_size, str(torch.device(device)))
     plan = cache.get(key)
     if plan is None:
-        plan = cache[key] = EvalPlan(data.test_user_ids, data.rated_offsets,
-                                     data.rated_items, block_size, device)
+        with trace.span("setup.eval_plan"):
+            plan = cache[key] = EvalPlan(data.test_user_ids, data.rated_offsets,
+                                         data.rated_items, block_size, device)
     return plan
 
 
@@ -281,10 +291,13 @@ def _topk_all_blocks(user_emb, item_emb, plan: EvalPlan, k: int):
     :func:`_topk_all_blocks_dense`, so both masks give equal ids."""
     scs, idss = [], []
     item_t = item_emb.T
+    device = user_emb.device
     for uids, rows, cols, n in zip(plan.uids_all, plan.rows_all, plan.cols_all,
                                    plan.n_rated):
-        scores = _mask_rated(user_emb[uids] @ item_t, rows[:n], cols[:n])
-        top_scores, top_ids = torch.topk(scores, k, dim=1)
+        with trace.device_span("rank.score", device):
+            scores = _mask_rated(user_emb[uids] @ item_t, rows[:n], cols[:n])
+        with trace.device_span("rank.topk", device):
+            top_scores, top_ids = torch.topk(scores, k, dim=1)
         scs.append(top_scores)
         idss.append(top_ids)
     return torch.stack(scs), torch.stack(idss)
@@ -296,11 +309,14 @@ def _topk_all_blocks_dense(user_emb, item_emb, uids_all, rated, k: int):
     (ranking.py:290-306). Returns (scores, ids), each (n_blocks, B, k)."""
     scs, idss = [], []
     item_t = item_emb.T
+    device = user_emb.device
     for uids in uids_all:
-        scores = user_emb[uids] @ item_t
-        scores = torch.where(rated[uids] != 0,
-                             torch.full_like(scores, MASK_VALUE), scores)
-        top_scores, top_ids = torch.topk(scores, k, dim=1)
+        with trace.device_span("rank.score", device):
+            scores = user_emb[uids] @ item_t
+            scores = torch.where(rated[uids] != 0,
+                                 torch.full_like(scores, MASK_VALUE), scores)
+        with trace.device_span("rank.topk", device):
+            top_scores, top_ids = torch.topk(scores, k, dim=1)
         scs.append(top_scores)
         idss.append(top_ids)
     return torch.stack(scs), torch.stack(idss)
@@ -314,14 +330,16 @@ def _ranked(data, user_emb, item_emb, k: int, block_size: int):
     device = user_emb.device
     plan = get_eval_plan(data, block_size, device)
     rated = get_rated_dense(data, device)
-    ue, ie = user_emb.float(), item_emb.float()
-    if rated is not None:
-        scs, idss = _topk_all_blocks_dense(ue, ie, plan.uids_all, rated, k)
-    else:
-        scs, idss = _topk_all_blocks(ue, ie, plan, k)
+    with trace.span("rank.blocks"):
+        ue, ie = user_emb.float(), item_emb.float()
+        if rated is not None:
+            scs, idss = _topk_all_blocks_dense(ue, ie, plan.uids_all, rated, k)
+        else:
+            scs, idss = _topk_all_blocks(ue, ie, plan, k)
     n = len(plan.user_ids)
-    return (plan, scs.reshape(-1, k)[:n].cpu().numpy(),
-            idss.reshape(-1, k)[:n].cpu().numpy())
+    with trace.span("rank.copy"):
+        return (plan, scs.reshape(-1, k)[:n].cpu().numpy(),
+                idss.reshape(-1, k)[:n].cpu().numpy())
 
 
 def topk_ids_from_embeddings(data, user_emb, item_emb, k: int,

@@ -31,6 +31,11 @@ into (the CPU, a mesh), every call runs the same callable eagerly.
   ``write_aux``).
 - **A failed capture raises**, naming the graph and the op of the port
   that failed; there is no quiet fall back to eager steps.
+- **Spans** (:mod:`selfrec_tpu_torch.utils.trace`): each warm-up step
+  is ``runner.warmup``; before a capture, ``runner.drain`` waits for the
+  work queued so far (the warm-up steps, the epoch's batches), so that
+  ``runner.capture`` and ``capture_ms`` time the capture alone, with the
+  cache flush ``torch.cuda.graph`` makes on entry.
 - :meth:`StepGraph.close` frees the graph and its memory pool.
 """
 
@@ -42,13 +47,14 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from selfrec_tpu_torch.utils import trace
+
 
 def counted_wrappers():
     """The kernel wrappers whose ``launches`` a replay must add to."""
     from selfrec_tpu_torch.ops import dense_dual, ell_gather
 
-    return (dense_dual.dual_matmul, dense_dual.float_products, dense_dual.float_operand,
-            ell_gather.ell_gather_sum)
+    return dense_dual.dual_matmul, dense_dual.float_products, ell_gather.ell_gather_sum
 
 
 class CudaGraph:
@@ -125,6 +131,7 @@ class StepGraph:
                 self._capture()
             self._replay()
 
+    @trace.span("runner.warmup")
     def _warm(self) -> None:
         if self.device.type != "cuda":
             self.fn()
@@ -136,19 +143,27 @@ class StepGraph:
             self.fn()
         main.wait_stream(side)
 
+    def _drain(self) -> None:
+        """Wait for the work queued before the capture."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _capture(self) -> None:
         wrappers = counted_wrappers()
         before = [w.launches for w in wrappers]
         graph = self.new_graph()
-        t0 = time.perf_counter()
-        try:
-            graph.capture(self.fn)
-        except RuntimeError as exc:
-            raise RuntimeError(f"[graph] {self.name}: capture failed in "
-                               f"{_failing_op(exc)}: {exc}") from exc
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.capture_ms.append(1e3 * (time.perf_counter() - t0))
+        with trace.span("runner.drain"):
+            self._drain()
+        with trace.span("runner.capture"):
+            t0 = time.perf_counter()
+            try:
+                graph.capture(self.fn)
+            except RuntimeError as exc:
+                raise RuntimeError(f"[graph] {self.name}: capture failed in "
+                                   f"{_failing_op(exc)}: {exc}") from exc
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.capture_ms.append(1e3 * (time.perf_counter() - t0))
         # capture ran no kernel: take its counts back, add them per replay
         self._delta = tuple(w.launches - b for w, b in zip(wrappers, before))
         for w, b in zip(wrappers, before):

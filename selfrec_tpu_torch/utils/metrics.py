@@ -9,12 +9,17 @@ Parity notes (each quirk reproduced deliberately — see SURVEY.md §2 #24):
   rounds inside each metric function.
 - ``ranking_evaluation`` output is the same list-of-strings format the
   reference writes to its performance files (util/evaluation.py:135-162).
+
+Both ranking evaluations are the ``metrics.ids`` span
+(:mod:`selfrec_tpu_torch.utils.trace`).
 """
 
 from __future__ import annotations
 
 import math
 from typing import Dict, List, Sequence, Tuple
+
+from selfrec_tpu_torch.utils import trace
 
 RecList = Dict[str, List[Tuple[str, float]]]
 Origin = Dict[str, Dict[str, float]]
@@ -81,6 +86,7 @@ def rmse(res: Sequence[Tuple]) -> float:
     return round(math.sqrt(error / len(res)), 5)
 
 
+@trace.span("metrics.ids")
 def ranking_evaluation(origin: Origin, res: RecList, top_ns: Sequence[int]) -> List[str]:
     measure: List[str] = []
     if len(origin) != len(res):
@@ -101,6 +107,7 @@ def ranking_evaluation(origin: Origin, res: RecList, top_ns: Sequence[int]) -> L
     return measure
 
 
+@trace.span("metrics.ids")
 def ranking_evaluation_ids(
     test_offsets, test_items, top_ids, top_ns: Sequence[int], n_items: int,
     sorted_test_keys=None,
