@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds kernels K1 (csrc/dense_dual.cu) and K2 (csrc/ell_gather.cu) from the
-checkout, one nvcc each, started together. Every model but the social ones
+Builds kernels K1 (csrc/dense_dual.cu), K2 (csrc/ell_gather.cu) and the
+eval's ranking kernels (csrc/rank_topk.cu) from the checkout, one nvcc
+each, started together. Every model but the social ones
 runs on the yelp2018-scale synthetic graph (31,667 users, 38,048 items,
 1,428,306 training edges) at D = 64 and batch 2048, with random weights
 from a seed.
@@ -47,7 +48,15 @@ SimGCL, int8x8 dense layout (SELFREC_TPU_DENSE=1):
    configuration), the first 50 batches of an epoch through the trainer's
    step; finite losses, K1 launched. Three more (graphed) under torch.profiler.
 4. eval phase: compute_embeddings and one fast_evaluation over all test
-   users; K1 launches once per layer. One more eval under the profiler.
+   users; K1 launches once per layer, the ranking kernels
+   (csrc/rank_topk.cu) once. One more eval under the profiler. Then the
+   ranking kernels alone on the model's embeddings (31,667 test users,
+   38,048 items, D 64, k 20): their ids score like the plain twin's and
+   like today's library path's (GEMM, ``torch.where`` and ``torch.topk``
+   over the 31 blocks of 1,024) position by position in float64
+   rescoring (rtol 1e-5), no rated id and none repeated; the kernels
+   timed (and each alone under the profiler) against their 2.30 ms f32
+   FMA bound, beside the plain twin and the library path.
 
 SGL (conf/SGL.yaml: n_layer 2, lambda 0.1, drop_rate 0.1, aug_type 1,
 temp 0.2), ELL layout (SELFREC_TPU_DENSE=0), and LightGCN on it:
@@ -122,7 +131,9 @@ UserKNN/ItemKNN, which rank through the scatter-mask path:
     card's CSR membership search equals the CPU's on 1,000,000 lanes; one
     sampler call of each timed. Then 10 steps (6 K1 launches a step, five
     more under the profiler) and one eval with SELFREC_TPU_EVAL_MASK=scatter
-    (3 launches); the scatter-mask ids equal the dense-mask ids.
+    (3 launches); the scatter-mask ids equal the dense-mask block scan's
+    (the same GEMM and torch.topk), and the dense-mask eval's (the ranking
+    kernels') score like them position by position.
 23. Over budget under auto (SELFREC_TPU_DENSE=auto,
     SELFREC_TPU_DENSE_BUDGET_GB=1.0: the 1.205 GB block and mask do not
     fit) with SELFREC_TPU_HOST_BATCHES=1: LightGCN on ELL, 10 steps (6 K2
@@ -238,6 +249,7 @@ F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 tensor rate
 K1_FLOAT_RTOL, K1_FLOAT_ATOL = 1e-5, 1e-3  # the JAX package's (tests/test_dense_dual.py)
 N_TRAIN_BATCHES = 50
+RANK_LAUNCHES = {}  # eval path tag: calls of the ranking kernels in its eval
 N_SHORT_BATCHES = 10
 N_PROFILE_STEPS = 3
 TWIN_STEPS = 5              # the eager twin's steps (k >= 5)
@@ -717,17 +729,13 @@ def check_topk_alike(tag, models, ue_cpu, ie_cpu):
 
     from selfrec_tpu_torch.ops import ranking
 
-    ue, ie = ue_cpu.double(), ie_cpu.double()
     top = {dev: torch.as_tensor(ranking.topk_ids_from_embeddings(
                m.data, ue_cpu.to(m.device), ie_cpu.to(m.device), 20))
            for dev, m in models.items()}
     uids = torch.as_tensor(models["cpu"].data.test_user_ids).long()
-
-    def rescore(ids):
-        return (ue[uids][:, None, :] * ie[ids]).sum(-1)
-
     id_off = float((top["cuda"] != top["cpu"]).double().mean())
-    if not torch.allclose(rescore(top["cuda"]), rescore(top["cpu"]), rtol=1e-5, atol=1e-6):
+    if not torch.allclose(rescored(ue_cpu, ie_cpu, uids, top["cuda"]),
+                          rescored(ue_cpu, ie_cpu, uids, top["cpu"]), rtol=1e-5, atol=1e-6):
         raise RuntimeError(f"{tag}: the card's top-20 lists score differently "
                            f"from the CPU's ({100 * id_off:.2f}% of ids differ)")
     return id_off, len(uids)
@@ -1123,17 +1131,21 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
 
     from selfrec_tpu_torch.utils import metrics
 
+    from selfrec_tpu_torch.ops import rank_topk
+
     counters = counter if isinstance(counter, tuple) else (counter,)
     expect = model.n_layers if expect is None else expect
     torch.cuda.synchronize()
     for c in counters:
         c.launches = 0
+    ranked = rank_topk.rank_topk.launches
     t0 = time.time()
     model.user_emb, model.item_emb = model.embeddings()
     measure = model.fast_evaluation(0)
     torch.cuda.synchronize()
     eval_ms = 1e3 * (time.time() - t0)
     launches = sum(c.launches for c in counters)
+    RANK_LAUNCHES[tag] = rank_topk.rank_topk.launches - ranked
     ue, ie = model.user_emb, model.item_emb
     if (tuple(ue.shape) != (model.data.user_num, width)
             or tuple(ie.shape) != (model.data.item_num, width)
@@ -1145,7 +1157,7 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
     if not all(math.isfinite(v) for v in perf.values()):
         raise RuntimeError(f"{tag} eval: metrics not finite: {perf}")
     log(f"[eval {tag}] Recall@20 {perf['Recall']} NDCG@20 {perf['NDCG']}, "
-        f"{eval_ms:.1f} ms, launches {launches}")
+        f"{eval_ms:.1f} ms, launches {launches}, ranking kernels {RANK_LAUNCHES[tag]}")
     if profile:
         def one_eval():
             model.user_emb, model.item_emb = model.embeddings()
@@ -1153,6 +1165,74 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
 
         profile_window(f"eval {tag}", one_eval, 1)
     return launches
+
+
+def rank_case(model, k=20):
+    """The eval's ranking kernels alone on the model's embeddings, resident
+    mask and test users; returns their row of the kernel table. Their ids
+    must score like the plain twin's and like the library path's (the GEMM,
+    ``torch.where`` and ``torch.topk`` over the plan's blocks, which the
+    dense mask took before the kernels) position by position in float64
+    rescoring (rtol 1e-5 / atol 1e-6: f32 sums in another order may swap
+    near-ties), their scores within 1e-5 of the plain twin's, with no rated
+    id and none repeated. The bound: 2 * n * I * D f32 FMA operations at
+    67 TFLOP/s; the bytes (the two tables once, the answer) take less."""
+    import torch
+
+    from selfrec_tpu_torch.ops import rank_topk, ranking
+
+    data = model.data
+    ue, ie = model.user_emb.float().contiguous(), model.item_emb.float().contiguous()
+    rated = ranking.get_rated_dense(data, "cuda")
+    plan = ranking.get_eval_plan(data, model.eval_block_size, "cuda")
+    uids = plan.uids
+    n, n_items, d = uids.shape[0], ie.shape[0], ie.shape[1]
+    before = rank_topk.rank_topk.launches
+    scs, ids = rank_topk.rank_topk(ue, ie, rated, uids, k)
+    torch.cuda.synchronize()
+    if rank_topk.rank_topk.launches != before + 1:
+        raise RuntimeError("ranking kernels: no launch counted")
+    pscs, pids = rank_topk.rank_topk_plain(ue, ie, rated, uids, k)
+    lids = ranking._topk_all_blocks_dense(ue, ie, plan.uids_all, rated, k)[1].reshape(-1, k)[:n]
+    ucpu = uids.cpu()
+    mine = rescored(ue, ie, ucpu, ids)
+    for what, other in (("plain twin", pids), ("library path", lids)):
+        if not torch.allclose(mine, rescored(ue, ie, ucpu, other), rtol=1e-5, atol=1e-6):
+            raise RuntimeError(f"ranking kernels: the ids score differently from the {what}'s "
+                               f"({int((ids != other).sum())} ids differ)")
+    err = float((scs - pscs).abs().max())
+    if err > 1e-5:
+        raise RuntimeError(f"ranking kernels: scores differ from the plain twin's by {err}")
+    srt = ids.sort(dim=1).values
+    if bool(rated[uids[:, None], ids].any()) or bool((srt[:, 1:] == srt[:, :-1]).any()):
+        raise RuntimeError("ranking kernels: a rated or repeated id returned")
+    id_off = float((ids != pids).double().mean())
+
+    def call():
+        return rank_topk.rank_topk(ue, ie, rated, uids, k)
+
+    ms = cuda_ms(call, reps=20)
+    ms_b2b = back_to_back_ms(call, ms)
+    partial_ms = kernel_only_ms(call, "rank_partial_kernel")
+    merge_ms = kernel_only_ms(call, "rank_merge_kernel")
+    plain_ms = cuda_ms(lambda: rank_topk.rank_topk_plain(ue, ie, rated, uids, k), reps=3)
+    library_ms = cuda_ms(lambda: ranking._topk_all_blocks_dense(ue, ie, plan.uids_all, rated,
+                                                                k), reps=10)
+    tiles_per_slice, slices = rank_topk.slice_plan(n, n_items, ue.device)
+    bms, bound_by = bound_ms(4 * (n + n_items) * d + 12 * n * k, 2.0 * n * n_items * d,
+                             F32_OPS_PER_S)
+    row = {"shape": [n, n_items, d, k], "tag": "yelp eval", "slices": slices,
+           "tiles_per_slice": tiles_per_slice, "match": "rescored rtol 1e-5",
+           "max_abs_err": err, "ids_differ": id_off, "ms": ms, "ms_back_to_back": ms_b2b,
+           "partial_ms": partial_ms, "merge_ms": merge_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by}
+    log(f"[kernel] ranking n={n} I={n_items} D={d} k={k}: ids score like the plain twin's and "
+        f"the library path's ({100 * id_off:.4f}% of ids differ from the twin's), scores "
+        f"within {err:.2e}; {ms:.4f} ms ({ms_b2b:.4f} back to back; rank_partial alone "
+        f"{partial_ms}, rank_merge alone {merge_ms}, {slices} slices of {tiles_per_slice} "
+        f"tiles; bound {bms:.4f} ms by {bound_by}, plain {plain_ms:.3f} ms, GEMM + where + "
+        f"topk over {plan.uids_all.shape[0]} blocks {library_ms:.4f} ms)")
+    return row
 
 
 def snapshot(model):
@@ -1329,6 +1409,9 @@ def csr_on_card_gate(model, n=1_000_000):
         f"({float(got['cpu'].float().mean()):.3f} rated)")
 
 
+TIMED_IDS_BLOCK = 1024  # the eval plan's users a block in timed_ids
+
+
 def timed_ids(data, model):
     """Top-20 ids of the model's embeddings, and the ms of that ranking."""
     import torch
@@ -1337,15 +1420,32 @@ def timed_ids(data, model):
 
     torch.cuda.synchronize()
     t0 = time.time()
-    ids = ranking.topk_ids_from_embeddings(data, model.user_emb, model.item_emb, 20)
+    ids = ranking.topk_ids_from_embeddings(data, model.user_emb, model.item_emb, 20,
+                                           block_size=TIMED_IDS_BLOCK)
     torch.cuda.synchronize()
     return ids, 1e3 * (time.time() - t0)
 
 
+def rescored(ue, ie, uids, ids):
+    """float64 scores of each row's ``ids`` (rows of ``uids``), on the CPU."""
+    import torch
+
+    ids = torch.as_tensor(ids).long().cpu()
+    return (ue.double().cpu()[uids][:, None, :] * ie.double().cpu()[ids]).sum(-1)
+
+
 def scatter_eval_gate(tag, model):
-    """The scatter-mask ranking's ids equal the resident mask's on the same
-    embeddings; each timed (the second of two runs)."""
+    """The scatter-mask ranking's ids EQUAL the resident mask's block scan
+    (``ranking._topk_all_blocks_dense``: the same GEMM and ``torch.topk``
+    over the same blocks) on the same embeddings; the dense-mask eval's
+    ids (the ranking kernels', whose f32 sums run in another order and
+    whose ties go to the lowest id) score like them position by position
+    in float64 rescoring, rtol 1e-5. The two evals timed (the second of two
+    runs)."""
     import numpy as np
+    import torch
+
+    from selfrec_tpu_torch.ops import ranking
 
     with knobs(SELFREC_TPU_EVAL_MASK="scatter"):
         timed_ids(model.data, model)
@@ -1353,11 +1453,23 @@ def scatter_eval_gate(tag, model):
     with knobs(SELFREC_TPU_EVAL_MASK="dense"):
         timed_ids(model.data, model)
         dense, dense_ms = timed_ids(model.data, model)
-    if not np.array_equal(scatter, dense):
-        raise RuntimeError(f"{tag}: the scatter-mask ids differ from the dense-mask ids in "
-                           f"{int((scatter != dense).sum())} places")
-    log(f"[eval {tag}] scatter-mask ids equal the dense-mask ids ({scatter.shape[0]} users); "
-        f"ranking alone: scatter {scatter_ms:.1f} ms, dense {dense_ms:.1f} ms")
+        ue, ie = model.user_emb.float().contiguous(), model.item_emb.float().contiguous()
+        plan = ranking.get_eval_plan(model.data, TIMED_IDS_BLOCK, ue.device)
+        rated = ranking.get_rated_dense(model.data, ue.device)
+        blocks = ranking._topk_all_blocks_dense(ue, ie, plan.uids_all, rated, 20)[1]
+        blocks = blocks.reshape(-1, 20)[:len(plan.user_ids)].cpu().numpy()
+    if not np.array_equal(scatter, blocks):
+        raise RuntimeError(f"{tag}: the scatter-mask ids differ from the dense-mask block "
+                           f"scan's in {int((scatter != blocks).sum())} places")
+    uids = torch.as_tensor(model.data.test_user_ids).long()
+    if not torch.allclose(rescored(ue, ie, uids, dense), rescored(ue, ie, uids, blocks),
+                          rtol=1e-5, atol=1e-6):
+        raise RuntimeError(f"{tag}: the ranking kernels' ids score differently from the "
+                           f"block scans' ({int((dense != blocks).sum())} ids differ)")
+    log(f"[eval {tag}] scatter-mask ids equal the dense-mask block scan's ({scatter.shape[0]} "
+        f"users); the ranking kernels' score like them ({100 * float(np.mean(dense != blocks)):.3f}"
+        f"% of ids differ); ranking alone: scatter {scatter_ms:.1f} ms, dense (kernels) "
+        f"{dense_ms:.1f} ms")
 
 
 KNN_CONF = {"topK": 50, "shrinkage": 100}
@@ -2825,8 +2937,8 @@ def main():
         with open(so[:-3] + ".log") as f:
             for line in f:
                 if "Compiling entry function" in line:
-                    found = re.search(r"(dual_s8|dual_float|float_operand|ell_items|ell_long_rows)"
-                                      r"_kernel(I\w+?EE)?", line)
+                    found = re.search(r"(dual_s8|dual_float|float_operand|ell_items|ell_long_rows|"
+                                      r"rank_partial|rank_merge)_kernel(I\w+?EE)?", line)
                     kernel = found.group(0) if found else line.split("'")[1]
                 elif "registers" in line or "spill" in line:
                     log(f"[build] {kernel}: "
@@ -2859,6 +2971,10 @@ def main():
                                              N_TRAIN_BATCHES, profile_steps=N_PROFILE_STEPS)
     k1_paths["simgcl_eval"] = eval_path("SimGCL int8x8", model, dense_dual.dual_matmul,
                                         profile=True)
+    if RANK_LAUNCHES["SimGCL int8x8"] != 1:
+        raise RuntimeError("SimGCL int8x8 eval: the dense-mask ranking did not take the "
+                           "ranking kernels once")
+    rank_row = rank_case(model)
     free(model)
     del model
     torch.cuda.empty_cache()
@@ -3074,7 +3190,10 @@ def main():
             ("K1 dual_matmul (bf16/f32 operands)", "selfrec_tpu_torch/csrc/dense_dual.cu",
              "selfrec_tpu/ops/dense_dual.py:174", k1f_paths, k1f_main, k1f_rows),
             ("K2 ell_gather_sum", "selfrec_tpu_torch/csrc/ell_gather.cu",
-             "selfrec_tpu/ops/spmm_pallas.py:94", k2_paths, k2_main, k2_rows)):
+             "selfrec_tpu/ops/spmm_pallas.py:94", k2_paths, k2_main, k2_rows),
+            # the eval's dense-mask ranking; no TPU kernel: lax.top_k there
+            ("rank_topk (rank_partial + rank_merge)", "selfrec_tpu_torch/csrc/rank_topk.cu",
+             None, {t: c for t, c in RANK_LAUNCHES.items() if c}, rank_row, [rank_row])):
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "launches_by_path": paths,

@@ -18,7 +18,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
-SOURCES = ("dense_dual.cu", "ell_gather.cu")
+SOURCES = ("dense_dual.cu", "ell_gather.cu", "rank_topk.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NVCC_TIMEOUT_S = 600

@@ -15,19 +15,31 @@ incidence plus a select (``SELFREC_TPU_EVAL_MASK=auto`` within
 (row ``block_size``) by its out-of-bounds mode; torch has none, so the port
 scatters only a block's real lanes, which the plan counts once.
 
+With the resident incidence the embedding evals
+(:func:`topk_ids_from_embeddings`, :func:`rec_list_from_embeddings`) take
+no block loop on the CPU, nor on the card for k <= ``rank_topk.K_MAX``:
+:mod:`selfrec_tpu_torch.ops.rank_topk` ranks every test user at once, by
+two hand-written kernels on the card (scores, mask and each user's top-k
+in one pass, the score matrix never written) and by their plain twin
+``rank_topk_plain`` on the CPU.
+
 Two top-k orders: score-function ranking (:func:`rec_list_from_score_fn`,
 :func:`topk_scores`, :func:`topk_scores_masked`,
-:func:`topk_scores_unmasked`; KNN's scores tie by construction) breaks ties
-by the lowest index, as ``lax.top_k`` does (:func:`topk_lowest_index`);
-the embedding evals (:func:`topk_ids_from_embeddings`,
-:func:`rec_list_from_embeddings`) keep ``torch.topk``, whose tie order is
-unspecified, since continuous embedding scores do not tie in practice.
+:func:`topk_scores_unmasked`; KNN's scores tie by construction) and
+``rank_topk`` break ties by the lowest index, as ``lax.top_k`` does
+(:func:`topk_lowest_index`); the block scans of the embedding evals (the
+scatter mask, and on the card the dense mask past ``K_MAX``) keep
+``torch.topk``, whose
+tie order is unspecified, since continuous embedding scores do not tie in
+practice.
 
 Spans (:mod:`selfrec_tpu_torch.utils.trace`): ``setup.eval_plan`` where
-the plan or the resident mask is built; in the all-blocks scan
-``rank.blocks`` (enqueueing every block) and ``rank.copy`` (the ids to the
-host), and each block's ``rank.score`` (scores and mask) and ``rank.topk``
-as device spans.
+the plan or the resident mask is built; around the ranking ``rank.blocks``
+(enqueueing the work) and ``rank.copy`` (the ids to the host); in the
+block scans each block's ``rank.score`` (scores and mask) and
+``rank.topk`` as device spans, and in ``rank_topk`` its own (``rank.fused``
+a call on the card, ``rank.score`` its scoring pass, ``rank.topk`` its
+merge).
 """
 
 from __future__ import annotations
@@ -38,9 +50,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from selfrec_tpu_torch.ops import rank_topk
+from selfrec_tpu_torch.ops.rank_topk import MASK_VALUE
 from selfrec_tpu_torch.utils import trace
-
-MASK_VALUE = -1e9  # reference masks rated items with -10e8
 
 
 def eval_topk_recall() -> Optional[float]:
@@ -63,17 +75,12 @@ def eval_topk_recall() -> Optional[float]:
 def topk_lowest_index(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-``k`` of each row of f32 ``scores``, descending, ties broken by
     the lowest index: ``lax.top_k``'s order, which ``torch.topk`` does not
-    promise. Each (value, index) pair becomes one int64 key, the value's
-    bits mapped to a signed integer of the same total order (-0.0 below
-    +0.0, as XLA's top-k compares) in the high word and the complement of
-    the index in the low word; keys are distinct, so ``torch.topk`` over
-    them has one answer. Returns (values, ids)."""
-    bits = scores.float().contiguous().view(torch.int32).to(torch.int64)
-    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    promise. Each (value, index) pair becomes one int64 key
+    (:func:`rank_topk.sort_keys`); keys are distinct, so ``torch.topk``
+    over them has one answer. Returns (values, ids)."""
     idx = torch.arange(scores.shape[-1], device=scores.device, dtype=torch.int64)
-    key = (order << 32) | (0xFFFFFFFF - idx)
-    top = torch.topk(key, k, dim=-1).values
-    ids = 0xFFFFFFFF - (top & 0xFFFFFFFF)
+    top = torch.topk(rank_topk.sort_keys(scores, idx), k, dim=-1).values
+    ids = rank_topk.key_ids(top)
     return torch.gather(scores, -1, ids), ids
 
 
@@ -194,7 +201,8 @@ class EvalPlan:
     stacked ``uids_all``, ``rows_all``, ``cols_all``, sit on ``device``.
     ``n_rated[b]`` counts block b's real lanes, which lead its rows: the
     ``rows < block_size`` filter, built once, through which the port's
-    scatter skips the padded lanes."""
+    scatter skips the padded lanes. ``uids`` is the test users' ids
+    unpadded, on ``device``."""
 
     def __init__(self, user_ids, rated_offsets, rated_items, block_size: int, device):
         self.block_size = block_size
@@ -228,6 +236,7 @@ class EvalPlan:
             self.uids_all, self.rows_all, self.cols_all = empty, empty, empty
         self.blocks = [(self.uids_all[b], self.rows_all[b], self.cols_all[b],
                         min(block_size, n - b * block_size)) for b in range(n_blocks)]
+        self.uids = self.uids_all.reshape(-1)[:n]
 
 
 def get_eval_plan(data, block_size: int, device) -> EvalPlan:
@@ -288,7 +297,11 @@ def _topk_all_blocks(user_emb, item_emb, plan: EvalPlan, k: int):
     """Every eval block with the scatter mask (ranking.py:260-287): scores,
     the block's real rated lanes set to -1e9, ``torch.topk``. Returns
     (scores, ids), each (n_blocks, B, k); the same top-k as
-    :func:`_topk_all_blocks_dense`, so both masks give equal ids."""
+    :func:`_topk_all_blocks_dense`, so the two block scans give equal ids.
+    The ranking kernels, which the resident mask takes on the card up to
+    ``rank_topk.K_MAX``, sum in another order and break ties by the lowest
+    id: their ids score alike position by position but may swap
+    near-ties."""
     scs, idss = [], []
     item_t = item_emb.T
     device = user_emb.device
@@ -324,18 +337,25 @@ def _topk_all_blocks_dense(user_emb, item_emb, uids_all, rated, k: int):
 
 @torch.no_grad()
 def _ranked(data, user_emb, item_emb, k: int, block_size: int):
-    """The ``auto`` dispatch (ranking.py:309-318): the dense-mask scan when
-    :func:`get_rated_dense` gives the incidence, else the scatter scan."""
+    """The ``auto`` dispatch (ranking.py:309-318). Without the incidence
+    from :func:`get_rated_dense`, the scatter scan. With it, CPU tensors
+    take :func:`rank_topk.rank_topk_plain` at any k; CUDA tensors take the
+    kernels (:func:`rank_topk.rank_topk`) for k up to ``rank_topk.K_MAX``
+    and the dense-mask block scan past it."""
     eval_topk_recall()
     device = user_emb.device
     plan = get_eval_plan(data, block_size, device)
     rated = get_rated_dense(data, device)
     with trace.span("rank.blocks"):
-        ue, ie = user_emb.float(), item_emb.float()
-        if rated is not None:
-            scs, idss = _topk_all_blocks_dense(ue, ie, plan.uids_all, rated, k)
-        else:
+        ue, ie = user_emb.float().contiguous(), item_emb.float().contiguous()
+        if rated is None:
             scs, idss = _topk_all_blocks(ue, ie, plan, k)
+        elif device.type == "cpu":
+            scs, idss = rank_topk.rank_topk_plain(ue, ie, rated, plan.uids, k)
+        elif k <= rank_topk.K_MAX:
+            scs, idss = rank_topk.rank_topk(ue, ie, rated, plan.uids, k)
+        else:
+            scs, idss = _topk_all_blocks_dense(ue, ie, plan.uids_all, rated, k)
     n = len(plan.user_ids)
     with trace.span("rank.copy"):
         return (plan, scs.reshape(-1, k)[:n].cpu().numpy(),

@@ -7,7 +7,11 @@ differently). Item ids and metric strings must be EQUAL; scores are the
 same f32 dot products summed in another order, rtol 1e-6. The scatter-mask
 plan's arrays are EQUAL to JAX's, and score-function ranking, which breaks
 ties by the lowest index as lax.top_k does, gives JAX's rec list EXACTLY
-on scores built to tie."""
+on scores built to tie. The fused top-k's plain twin
+(ops/rank_topk.py ``rank_topk_plain``, the two stages of the card's
+kernels) gives the JAX package's dense-mask scan; on integer scores, which
+tie everywhere, it gives ``topk_lowest_index`` over the whole masked
+matrix EXACTLY."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,8 +24,9 @@ from selfrec_tpu.ops import ranking as jax_ranking
 from selfrec_tpu.utils import metrics as jax_metrics
 from selfrec_tpu_torch.config import ModelConf
 from selfrec_tpu_torch.data.interaction import Interaction
-from selfrec_tpu_torch.ops import ranking
+from selfrec_tpu_torch.ops import rank_topk, ranking
 from selfrec_tpu_torch.utils import metrics
+from selfrec_tpu_torch.utils.synth import synth_graph_mapped
 
 CONF = {"training.set": "<memory>", "test.set": "<memory>",
         "model": {"name": "SimGCL", "type": "graph"}, "item.ranking.topN": [10],
@@ -232,3 +237,176 @@ def test_batched_full_rank_equals_jax(both_data):
     for (_, ti, ts), (_, ji, js) in zip(got, ref):
         np.testing.assert_array_equal(ti, ji)
         np.testing.assert_allclose(ts, js, rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def wide_data():
+    """Both packages' Interaction over one graph of 300 users and 1,000
+    items: enough items for slices that do not divide the catalog and for
+    k past the kernels' K_MAX."""
+    train, test = synth_graph_mapped(300, 1000, 8000, seed=11)
+    return (JaxInteraction(JaxConf(dict(CONF)), train, test),
+            Interaction(ModelConf(dict(CONF)), train, test))
+
+
+@pytest.mark.parametrize("d", [64, 100])
+@pytest.mark.parametrize("k", [10, 20])
+def test_rank_topk_plain_equals_jax_dense_scan(wide_data, k, d):
+    """7 slices of 143 items (the last 142): ids equal to the JAX package's
+    ``_topk_all_blocks_dense`` (lax.top_k's order), scores within rtol 1e-6
+    (the same f32 products summed in another order)."""
+    jd, td = wide_data
+    ue, ie = _embeddings(td, seed=k + d, d=d)
+    jplan = jax_ranking.get_eval_plan(jd, 64)
+    jscs, jids = jax_ranking._topk_all_blocks_dense(
+        jnp.asarray(ue), jnp.asarray(ie), jplan.uids_all, jax_ranking.get_rated_dense(jd), k)
+    plan = ranking.get_eval_plan(td, 64, "cpu")
+    rated = ranking.get_rated_dense(td, "cpu")
+    scs, ids = rank_topk.rank_topk_plain(torch.from_numpy(ue), torch.from_numpy(ie), rated,
+                                         plan.uids, k, slices=7)
+    n = len(plan.user_ids)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids).reshape(-1, k)[:n])
+    np.testing.assert_allclose(scs.numpy(), np.asarray(jscs).reshape(-1, k)[:n], rtol=1e-6)
+
+
+def _integer_case(seed, n_users=40, n_items=90, d=6, rated_share=0.3):
+    """Integer embeddings (every score an exact small integer, so scores tie
+    everywhere and sum alike in any order) and a random rated incidence."""
+    rng = np.random.default_rng(seed)
+    ue = torch.from_numpy(rng.integers(-2, 3, size=(n_users, d)).astype(np.float32))
+    ie = torch.from_numpy(rng.integers(-2, 3, size=(n_items, d)).astype(np.float32))
+    rated = torch.from_numpy((rng.random((n_users, n_items)) < rated_share).astype(np.int8))
+    uids = torch.from_numpy(rng.permutation(n_users)[:25].astype(np.int64))
+    return ue, ie, rated, uids
+
+
+def _masked_reference(ue, ie, rated, uids, k):
+    """topk_lowest_index over the whole masked score matrix."""
+    full = torch.where(rated[uids] != 0, ranking.MASK_VALUE, ue[uids] @ ie.T)
+    return ranking.topk_lowest_index(full, k)
+
+
+@pytest.mark.parametrize("slices", [1, 4, 7, 90])
+@pytest.mark.parametrize("k", [5, 20])
+def test_rank_topk_plain_ties_by_the_lowest_id(slices, k):
+    """Scores that tie everywhere: any slice count gives the whole masked
+    matrix's top-k in lax.top_k's order, ids and values exactly."""
+    ue, ie, rated, uids = _integer_case(seed=slices + k)
+    got_s, got_i = rank_topk.rank_topk_plain(ue, ie, rated, uids, k, slices=slices)
+    want_s, want_i = _masked_reference(ue, ie, rated, uids, k)
+    assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+
+
+@pytest.mark.parametrize("slices", [1, 3, 7])
+def test_rank_topk_plain_short_user_gets_rated_items_lowest_id_first(slices):
+    """A user with 3 unrated items and k = 10: the 3 by score, then 7 rated
+    items at exactly -1e9, lowest ids first."""
+    ue, ie, rated, uids = _integer_case(seed=3)
+    uids = uids[:4].clone()
+    u = int(uids[0])
+    unrated = [5, 41, 77]
+    rated[u] = 1
+    rated[u, unrated] = 0
+    scs, ids = rank_topk.rank_topk_plain(ue, ie, rated, uids, 10, slices=slices)
+    order = sorted(unrated, key=lambda i: (-float(ue[u] @ ie[i]), i))
+    assert ids[0, :3].tolist() == order
+    assert ids[0, 3:].tolist() == [i for i in range(90) if i not in unrated][:7]
+    assert scs[0, 3:].tolist() == [ranking.MASK_VALUE] * 7
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rank_topk_plain_returns_no_rated_item_while_k_unrated_exist(seed):
+    """Users who rated most of the catalog (up to 85 of 90 items), k = 5:
+    no returned item is rated and none repeats."""
+    ue, ie, rated, uids = _integer_case(seed=seed, rated_share=0.9)
+    rated[:, :5] = 0  # every user keeps at least 5 unrated items
+    scs, ids = rank_topk.rank_topk_plain(ue, ie, rated, uids, 5, slices=4)
+    assert not bool(rated[uids[:, None], ids].any())
+    assert all(len(set(row)) == 5 for row in ids.tolist())
+    assert bool((scs > ranking.MASK_VALUE).all())
+
+
+def test_sort_keys_round_trip_and_order():
+    """Keys decode to the values bit for bit and the ids; descending keys
+    order values descending, -0.0 below +0.0, ties by the lowest id."""
+    v = torch.tensor([1.5, -0.0, 0.0, -np.inf, np.inf, ranking.MASK_VALUE, 1.5, -2.0],
+                     dtype=torch.float32)
+    ids = torch.arange(8, dtype=torch.int64) * 1000
+    keys = rank_topk.sort_keys(v, ids)
+    assert torch.equal(rank_topk.key_values(keys).view(torch.int32), v.view(torch.int32))
+    assert torch.equal(rank_topk.key_ids(keys), ids)
+    order = torch.argsort(keys, descending=True).tolist()
+    assert order == [4, 0, 6, 2, 1, 7, 5, 3]
+
+
+@pytest.mark.parametrize("case", ["wrong_dtype", "int32_rated", "int32_uids", "non_contiguous",
+                                  "k_over_max", "k_zero", "k_over_items", "widths_differ",
+                                  "rated_shape"])
+def test_rank_topk_wrapper_refuses_what_the_kernel_does_not_take(case):
+    ue, ie, rated, uids = _integer_case(seed=4, n_items=200)
+    k = 10
+    if case == "wrong_dtype":
+        ue = ue.double()
+    elif case == "int32_rated":
+        rated = rated.int()
+    elif case == "int32_uids":
+        uids = uids.int()
+    elif case == "non_contiguous":
+        ie = torch.cat([ie, ie], dim=1)[:, ::2]
+    elif case == "k_over_max":
+        k = rank_topk.K_MAX + 1
+    elif case == "k_zero":
+        k = 0
+    elif case == "k_over_items":
+        ie, rated, k = ie[:8], rated[:, :8].contiguous(), 9
+    elif case == "widths_differ":
+        ie = ie[:, :5].contiguous()
+    elif case == "rated_shape":
+        rated = rated[:, :100].contiguous()
+    with pytest.raises((TypeError, ValueError)):
+        rank_topk.rank_topk(ue, ie, rated, uids, k)
+
+
+def test_rank_topk_launches_on_the_card_only():
+    """The kernels' wrapper takes CUDA tensors alone: CPU ones, which the
+    eval hands to the plain twin, raise and count no launch."""
+    ue, ie, rated, uids = _integer_case(seed=5)
+    before = rank_topk.rank_topk.launches
+    with pytest.raises(RuntimeError, match="rank_topk_plain"):
+        rank_topk.rank_topk(ue, ie, rated, uids, 10)
+    assert rank_topk.rank_topk.launches == before
+
+
+def _spy_paths(monkeypatch):
+    """Record which ranking path ``_ranked`` takes, each still computing."""
+    taken = []
+    for mod, name in ((rank_topk, "rank_topk_plain"), (ranking, "_topk_all_blocks"),
+                      (ranking, "_topk_all_blocks_dense")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            taken.append(_name)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(mod, name, spy)
+    return taken
+
+
+@pytest.mark.parametrize("case", ["cpu_dense", "scatter_mask", "k_over_max"])
+def test_ranked_dispatch(wide_data, monkeypatch, case):
+    """CPU inputs with the resident mask take the plain twin, at k past
+    the kernels' K_MAX too (on the card that k takes the dense-mask block
+    scan); the scatter mask takes the scatter scan. Each answers as the JAX
+    package does."""
+    jd, td = wide_data
+    k = rank_topk.K_MAX + 2 if case == "k_over_max" else 20
+    if case == "scatter_mask":
+        monkeypatch.setenv("SELFREC_TPU_EVAL_MASK", "scatter")
+    ue, ie = _embeddings(td, seed=21)
+    taken = _spy_paths(monkeypatch)
+    ids = ranking.topk_ids_from_embeddings(td, torch.from_numpy(ue), torch.from_numpy(ie), k,
+                                           block_size=64)
+    assert taken == {"cpu_dense": ["rank_topk_plain"], "scatter_mask": ["_topk_all_blocks"],
+                     "k_over_max": ["rank_topk_plain"]}[case]
+    np.testing.assert_array_equal(
+        ids, jax_ranking.topk_ids_from_embeddings(jd, ue, ie, k, block_size=64))

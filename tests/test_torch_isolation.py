@@ -15,7 +15,7 @@ import torch
 import selfrec_tpu_torch
 from selfrec_tpu_torch import device as device_lib
 from selfrec_tpu_torch.models import MODEL_REGISTRY, get_model_class
-from selfrec_tpu_torch.ops import cuda_build, dense_dual, ell_gather
+from selfrec_tpu_torch.ops import cuda_build, dense_dual, ell_gather, rank_topk
 from selfrec_tpu_torch.ops.spmm_ell import build_ell_layout
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -532,3 +532,184 @@ def test_device_motifs_on_the_card_equal_the_cpu():
         torch.set_float32_matmul_precision(saved)
     for got, want in zip(card, motifs.mhcn_hypergraphs_device(s, y, "cpu")):
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("failure", ["not_hopper", "no_library"])
+def test_rank_topk_refuses_cuda_tensors_it_cannot_launch_on(monkeypatch, failure):
+    """As K1's and K2's wrappers: the ranking kernels raise where they
+    cannot launch, and never take the plain twin for CUDA tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    plain_calls = []
+    monkeypatch.setattr(rank_topk, "rank_topk_plain", lambda *a: plain_calls.append(a))
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda dev=None: (8, 0) if failure == "not_hopper" else (9, 0))
+
+    def no_library():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(rank_topk, "_load", no_library)
+    before = rank_topk.rank_topk.launches
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        ue = torch.empty((96, 64), device="cuda")
+        ie = torch.empty((300, 64), device="cuda")
+        rated = torch.empty((96, 300), dtype=torch.int8, device="cuda")
+        uids = torch.empty((50,), dtype=torch.int64, device="cuda")
+        with pytest.raises(RuntimeError, match="sm_90a" if failure == "not_hopper"
+                           else "nvcc"):
+            rank_topk.rank_topk(ue, ie, rated, uids, 20)
+    assert plain_calls == []
+    assert rank_topk.rank_topk.launches == before
+
+
+def _rank_case(gen, n_users, n_items, d, share, integer=False):
+    """Embeddings, a rated incidence of the given density and a sorted
+    subset of test users, on the card."""
+    if integer:
+        ue = torch.randint(-2, 3, (n_users, d), generator=gen, device="cuda").float()
+        ie = torch.randint(-2, 3, (n_items, d), generator=gen, device="cuda").float()
+    else:
+        ue = torch.randn((n_users, d), generator=gen, device="cuda") * 0.3
+        ie = torch.randn((n_items, d), generator=gen, device="cuda") * 0.3
+    rated = (torch.rand((n_users, n_items), generator=gen, device="cuda") < share).to(
+        torch.int8)
+    uids = torch.randperm(n_users, generator=gen, device="cuda")[:n_users - 1].sort().values
+    return ue, ie, rated, uids
+
+
+def _no_rated_no_repeat(ids, rated, uids):
+    assert not bool(rated[uids[:, None], ids].any())
+    srt = ids.sort(dim=1).values
+    assert not bool((srt[:, 1:] == srt[:, :-1]).any())
+
+
+@pytest.mark.cuda
+def test_rank_topk_kernels_score_like_the_plain_twin_on_the_card():
+    """At the eval cell's shape (31,668 users, 31,667 of them tested, 38,048
+    items, D 64, k 20, yelp2018's density of rated items): the kernels'
+    ids score like the plain twin's position by position in float64
+    rescoring (rtol 1e-5 / atol 1e-6: f32 sums in another order may swap
+    near-ties), their scores within 1e-5; no rated id, none repeated. Run
+    as the dual kernel's test above."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    ue, ie, rated, uids = _rank_case(gen, 31668, 38048, 64, 1561406 / (31668 * 38048))
+    before = rank_topk.rank_topk.launches
+    scs, ids = rank_topk.rank_topk(ue, ie, rated, uids, 20)
+    torch.cuda.synchronize()
+    assert rank_topk.rank_topk.launches == before + 1
+    pscs, pids = rank_topk.rank_topk_plain(ue, ie, rated, uids, 20)
+    u64, i64 = ue.double()[uids], ie.double()
+    torch.testing.assert_close((u64[:, None, :] * i64[ids]).sum(-1),
+                               (u64[:, None, :] * i64[pids]).sum(-1), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(scs, pscs, rtol=1e-5, atol=1e-5)
+    _no_rated_no_repeat(ids, rated, uids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, d, share", [(20, 64, 0.3), (128, 100, 0.3), (7, 16, 0.999)])
+def test_rank_topk_kernels_tie_as_the_plain_twin_on_the_card(k, d, share):
+    """Integer embeddings, whose scores tie everywhere and sum alike in any
+    order: ids and scores EQUAL to the plain twin's (ties by the lowest
+    id), at a k that fills the kernels' lists, a padded D, and users with
+    fewer unrated items than k (rated ones at -1e9, lowest id first)."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    ue, ie, rated, uids = _rank_case(gen, 1500, 2900, d, share, integer=True)
+    scs, ids = rank_topk.rank_topk(ue, ie, rated, uids, k)
+    pscs, pids = rank_topk.rank_topk_plain(ue, ie, rated, uids, k)
+    assert torch.equal(ids, pids) and torch.equal(scs, pscs)
+    if share < 0.5:
+        _no_rated_no_repeat(ids, rated, uids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["wrong_dtype", "non_contiguous", "k_over_max"])
+def test_rank_topk_wrapper_raises_on_the_card(case):
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ue, ie, rated, uids = _rank_case(gen, 300, 700, 64, 0.1)
+    k = rank_topk.K_MAX + 1 if case == "k_over_max" else 20
+    if case == "wrong_dtype":
+        ue = ue.half()
+    elif case == "non_contiguous":
+        ie = torch.cat([ie, ie], dim=1)[:, ::2]
+    with pytest.raises((TypeError, ValueError)):
+        rank_topk.rank_topk(ue, ie, rated, uids, k)
+
+
+@pytest.mark.cuda
+def test_eval_ranking_takes_the_kernels_on_the_card():
+    """``topk_ids_from_embeddings`` on the card with the resident mask: one
+    call of the kernels, counted by the host span ``rank.fused``; under a
+    profiler the device spans ``rank.score`` and ``rank.topk`` read one
+    pair each. Its ids score like the CPU's (the plain twin)."""
+    _needs_card()
+    from selfrec_tpu_torch.config import ModelConf
+    from selfrec_tpu_torch.data.interaction import Interaction
+    from selfrec_tpu_torch.ops import ranking
+    from selfrec_tpu_torch.utils import trace
+    from selfrec_tpu_torch.utils.synth import synth_graph_mapped
+
+    conf = {"training.set": "<memory>", "test.set": "<memory>",
+            "model": {"name": "SimGCL", "type": "graph"}, "item.ranking.topN": [20],
+            "embedding.size": 64, "max.epoch": 1, "batch.size": 64,
+            "learning.rate": 0.01, "reg.lambda": 0.0001, "output": "unused"}
+    data = Interaction(ModelConf(conf), *synth_graph_mapped(2000, 3000, 40000, seed=5))
+    gen = torch.Generator().manual_seed(5)
+    ue = torch.randn((data.user_num, 64), generator=gen)
+    ie = torch.randn((data.item_num, 64), generator=gen)
+    trace.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        ids = ranking.topk_ids_from_embeddings(data, ue.cuda(), ie.cuda(), 20)
+    totals = trace.totals()
+    assert totals["rank.fused"].count == 1
+    assert totals["rank.score"].device_count == 1 and totals["rank.topk"].device_count == 1
+    cpu = ranking.topk_ids_from_embeddings(data, ue, ie, 20)
+    uids = torch.as_tensor(data.test_user_ids).long()
+    u64, i64 = ue.double()[uids], ie.double()
+    torch.testing.assert_close((u64[:, None, :] * i64[torch.as_tensor(ids)]).sum(-1),
+                               (u64[:, None, :] * i64[torch.as_tensor(cpu)]).sum(-1),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_eval_ranking_on_the_card_past_k_max_takes_the_block_scan(monkeypatch):
+    """On the card the resident mask takes the dense-mask block scan past
+    the kernels' K_MAX (up to it, the test above); its answer scores like
+    the CPU's twin's."""
+    _needs_card()
+    from selfrec_tpu_torch.config import ModelConf
+    from selfrec_tpu_torch.data.interaction import Interaction
+    from selfrec_tpu_torch.ops import ranking
+    from selfrec_tpu_torch.utils.synth import synth_graph_mapped
+
+    conf = {"training.set": "<memory>", "test.set": "<memory>",
+            "model": {"name": "SimGCL", "type": "graph"}, "item.ranking.topN": [20],
+            "embedding.size": 64, "max.epoch": 1, "batch.size": 64,
+            "learning.rate": 0.01, "reg.lambda": 0.0001, "output": "unused"}
+    data = Interaction(ModelConf(conf), *synth_graph_mapped(500, 1200, 9000, seed=6))
+    k = rank_topk.K_MAX + 2
+    taken = []
+    for mod, name in ((rank_topk, "rank_topk"), (ranking, "_topk_all_blocks_dense")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            taken.append(_name)
+            return _real(*a, **kw)
+
+        # the wrapper counts its launches on whatever its module's name holds
+        spy.launches = getattr(real, "launches", 0)
+        monkeypatch.setattr(mod, name, spy)
+    gen = torch.Generator().manual_seed(6)
+    ue = torch.randn((data.user_num, 64), generator=gen)
+    ie = torch.randn((data.item_num, 64), generator=gen)
+    ids = ranking.topk_ids_from_embeddings(data, ue.cuda(), ie.cuda(), k)
+    assert taken == ["_topk_all_blocks_dense"]
+    cpu = ranking.topk_ids_from_embeddings(data, ue, ie, k)
+    uids = torch.as_tensor(data.test_user_ids).long()
+    u64, i64 = ue.double()[uids], ie.double()
+    torch.testing.assert_close((u64[:, None, :] * i64[torch.as_tensor(ids)]).sum(-1),
+                               (u64[:, None, :] * i64[torch.as_tensor(cpu)]).sum(-1),
+                               rtol=1e-5, atol=1e-6)
