@@ -1376,18 +1376,19 @@ def sampler_gates(model, n_steps=3):
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = tuple(u.shape)
     csr_ms = cuda_ms(lambda: sampling.sample_negatives(
-        gen, u, model._rated_items, model._rated_offsets, model.data.item_num, shape,
-        n_search_steps=model._n_search_steps), reps=20)
+        gen, u, model._rated_keys, model.data.item_num, shape), reps=20)
     bitmap_ms = cuda_ms(lambda: sampling.sample_negatives_bitmap(
         gen, u, bitmap, model.data.item_num, shape), reps=20)
-    log(f"[sampler] CSR (search {model._n_search_steps} steps) equals the bitmap over "
+    log(f"[sampler] CSR (sorted keys) equals the bitmap over "
         f"{n_steps} steps: negatives and losses {drawn['csr'][1].tolist()}; one call at "
         f"{shape[0]} lanes: CSR {csr_ms:.4f} ms, bitmap {bitmap_ms:.4f} ms")
 
 
 def csr_on_card_gate(model, n=1_000_000):
     """The CSR membership search on the card equals the CPU's on the same
-    (user, candidate) lanes of the yelp CSR."""
+    (user, candidate) lanes of the yelp CSR, and so does the sampler's
+    search of the sorted keys on the card."""
+    import numpy as np
     import torch
 
     from selfrec_tpu_torch.ops import sampling
@@ -1400,10 +1401,14 @@ def csr_on_card_gate(model, n=1_000_000):
     pick = off[users] + (torch.rand(n, generator=gen) * (off[users + 1] - off[users])).long()
     cand = torch.where(torch.arange(n) % 2 == 0,
                        torch.as_tensor(model.data.rated_items).long()[pick], cand)
+    steps = int(np.ceil(np.log2(int(np.diff(model.data.rated_offsets).max()) + 1))) + 1
     got = {dev: sampling.searchsorted_in_segments(
         torch.as_tensor(model.data.rated_items, device=dev), off.to(dev), users.to(dev),
-        cand.to(dev), model._n_search_steps).cpu() for dev in ("cpu", "cuda")}
-    if not torch.equal(got["cuda"], got["cpu"]):
+        cand.to(dev), steps).cpu() for dev in ("cpu", "cuda")}
+    keys = model._rated_keys
+    q = users.cuda() * model.data.item_num + cand.cuda()
+    keyed = keys[torch.searchsorted(keys, q).clamp(max=keys.numel() - 1)] == q
+    if not (torch.equal(got["cuda"], got["cpu"]) and torch.equal(keyed.cpu(), got["cpu"])):
         raise RuntimeError("CSR phase: the card's membership search differs from the CPU's")
     log(f"[sampler] CSR membership on the card equals the CPU on {n} lanes "
         f"({float(got['cpu'].float().mean()):.3f} rated)")

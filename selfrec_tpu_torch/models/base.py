@@ -40,7 +40,9 @@ bit-identical.
 Spans (:mod:`selfrec_tpu_torch.utils.trace`, whose record each
 recommender's constructor starts afresh) mark the set-up (``setup.*``),
 each epoch's runner (``runner.*``) and the eval (``rank.*``,
-``metrics.*``); none runs inside a step.
+``metrics.*``); none runs inside a step. Its counters say which layout
+each adjacency took (``layout.<class>``) and which negative sampler was
+built (``sampler.bitmap`` or ``sampler.csr``).
 """
 
 from __future__ import annotations
@@ -616,7 +618,7 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
         if conf.contain("compute.dtype"):
             set_compute_dtype(conf["compute.dtype"])
         self._rated_items = self._rated_offsets = self._rated_bitmap = None
-        self._n_search_steps = 1
+        self._rated_keys = None
         self.params: Optional[Dict[str, torch.Tensor]] = None
         self.optimizer = None
         self.aux: Dict[str, Any] = {}
@@ -666,12 +668,14 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
         from selfrec_tpu_torch.ops.graph import norm_adj_from_scipy
 
         mat = self.data.norm_adj if scipy_norm_adj is None else scipy_norm_adj
-        if self.mesh is not None:
-            sharded = self._try_sharded_dense(mat)
-            if sharded is not None:
-                return sharded
-            return self.shard_adj(norm_adj_from_scipy(mat, device=self.device))
-        return norm_adj_from_scipy(mat, self.data.user_num, device=self.device)
+        if self.mesh is None:
+            adj = norm_adj_from_scipy(mat, self.data.user_num, device=self.device)
+        else:
+            adj = self._try_sharded_dense(mat)
+            if adj is None:
+                adj = self.shard_adj(norm_adj_from_scipy(mat, device=self.device))
+        trace.count(f"layout.{type(adj).__name__}")
+        return adj
 
     def _try_sharded_dense(self, mat):
         """The ShardedDenseAdj when the matrix is symmetric-bipartite, the
@@ -725,20 +729,19 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
     def _build_sampler(self):
         """The rated CSR on the device, and the packed-bitmap sampler when
         the (U, ceil(I/32)) uint32 bitmap fits ``SELFREC_TPU_NEG_BITMAP_MB``
-        (base.py:453-471); else the CSR binary-search sampler."""
+        (base.py:453-471); else the CSR sampler over the rated pairs'
+        sorted keys."""
         self._rated_items = torch.as_tensor(self.data.rated_items, device=self.device)
         self._rated_offsets = torch.as_tensor(self.data.rated_offsets, device=self.device)
-        max_deg = int(self.data.rated_counts().max()) if self.data.user_num else 1
-        self._n_search_steps = max(1, int(np.ceil(np.log2(max_deg + 1))) + 1)
+        self._rated_keys = sampling.rated_keys(self._rated_offsets, self._rated_items,
+                                               self.data.item_num)
         self._rated_bitmap = None
-        if self.data.user_num:
-            words = (self.data.item_num + 31) // 32
-            budget_mb = float(os.environ.get("SELFREC_TPU_NEG_BITMAP_MB", "512"))
-            if self.data.user_num * words * 4 <= budget_mb * 1e6:
-                self._rated_bitmap = sampling.bitmap_to_device(
-                    sampling.pack_rated_bitmap(
-                        self.data.rated_offsets, self.data.rated_items,
-                        self.data.user_num, self.data.item_num), self.device)
+        if self.data.user_num and sampling.bitmap_fits(self.data.user_num, self.data.item_num):
+            self._rated_bitmap = sampling.bitmap_to_device(
+                sampling.pack_rated_bitmap(
+                    self.data.rated_offsets, self.data.rated_items,
+                    self.data.user_num, self.data.item_num), self.device)
+        trace.count("sampler.csr" if self._rated_bitmap is None else "sampler.bitmap")
 
     def sample_negatives(self, users: torch.Tensor) -> torch.Tensor:
         shape = (tuple(users.shape) if self.n_negs == 1
@@ -748,9 +751,8 @@ class TorchGraphRecommender(_TrainStateMixin, GraphRecommender):
                 self.generator, users, self._rated_bitmap, self.data.item_num,
                 shape=shape, n_rounds=self.n_neg_rounds)
         return sampling.sample_negatives(
-            self.generator, users, self._rated_items, self._rated_offsets,
-            self.data.item_num, shape=shape, n_rounds=self.n_neg_rounds,
-            n_search_steps=self._n_search_steps)
+            self.generator, users, self._rated_keys, self.data.item_num, shape=shape,
+            n_rounds=self.n_neg_rounds)
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One step; the new aux written into ``self.aux`` in place.

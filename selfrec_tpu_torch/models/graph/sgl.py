@@ -23,6 +23,11 @@ same masks. Two arms, chosen by the adjacency's layout:
 
 Under a mesh the dense views are refactored ``ShardedDenseAdj`` slices and
 the ELL template is a ``HaloAdj`` reweighted per epoch.
+
+Spans: the template's build is part of ``setup.adj`` (and counted as a
+``layout.*``); each epoch's views are ``views.keep`` (the host draws and
+their copy) and ``views.weights`` (the device work, also a device span
+under a profiler).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from selfrec_tpu_torch.ops.graph import (bipartite_renorm_weights,
 from selfrec_tpu_torch.ops.sampling import unique_with_mask
 from selfrec_tpu_torch.ops.spmm_dense import DenseAdj, adj_edge_perm
 from selfrec_tpu_torch.parallel.dense_shard import ShardedDenseAdj
+from selfrec_tpu_torch.utils import trace
 
 
 class SGL(TorchGraphRecommender):
@@ -59,21 +65,23 @@ class SGL(TorchGraphRecommender):
         self._w_clean = None
         self._view1 = None
         self._view2 = None
-        if isinstance(self.adj, (DenseAdj, ShardedDenseAdj)):
-            # the block's edge order (scipy COO of norm_adj) differs from the
-            # dataset's, in which the keep masks are drawn
-            self._edge_perm = torch.as_tensor(
-                adj_edge_perm(self.adj, self.data.edge_users, self.data.edge_items,
-                              self.data.item_num), device=self.device).long()
-        else:
-            self._view_template = self.shard_adj(build_bipartite_ell_template(
-                self.data.edge_users, self.data.edge_items, self.data.user_num,
-                self.data.item_num, device=self.device))
-            # clean-graph weights over the template (== norm_adj's)
-            self._w_clean = bipartite_renorm_weights(
-                self._edge_users_dev, self._edge_items_dev,
-                torch.ones(self.data.n_edges, dtype=torch.bool, device=self.device),
-                self.data.user_num, self.data.item_num)
+        with trace.span("setup.adj"):
+            if isinstance(self.adj, (DenseAdj, ShardedDenseAdj)):
+                # the block's edge order (scipy COO of norm_adj) differs from
+                # the dataset's, in which the keep masks are drawn
+                self._edge_perm = torch.as_tensor(
+                    adj_edge_perm(self.adj, self.data.edge_users, self.data.edge_items,
+                                  self.data.item_num), device=self.device).long()
+            else:
+                self._view_template = self.shard_adj(build_bipartite_ell_template(
+                    self.data.edge_users, self.data.edge_items, self.data.user_num,
+                    self.data.item_num, device=self.device))
+                trace.count(f"layout.{type(self._view_template).__name__}")
+                # clean-graph weights over the template (== norm_adj's)
+                self._w_clean = bipartite_renorm_weights(
+                    self._edge_users_dev, self._edge_items_dev,
+                    torch.ones(self.data.n_edges, dtype=torch.bool, device=self.device),
+                    self.data.user_num, self.data.item_num)
 
     def _ego(self, params):
         return torch.cat([params["user_emb"], params["item_emb"]], dim=0)
@@ -107,13 +115,18 @@ class SGL(TorchGraphRecommender):
         return torch.as_tensor(self._edge_keep_mask(rng), device=self.device)
 
     def epoch_setup(self, epoch):
+        """The epoch's two dropped views: their keep masks drawn on the host
+        and copied over (span ``views.keep``), then their blocks or weights
+        made on the device (span and device span ``views.weights``)."""
         rng = self.epoch_rng(epoch, stream=1)
-        if self._view_template is None:
-            self._view1 = self.adj.refactor_view(self._keep(rng)[self._edge_perm])
-            self._view2 = self.adj.refactor_view(self._keep(rng)[self._edge_perm])
-            return {}
-        return {"w1": self._view_weights(self._keep(rng)),
-                "w2": self._view_weights(self._keep(rng))}
+        with trace.span("views.keep"):
+            keep1, keep2 = self._keep(rng), self._keep(rng)
+        with trace.span("views.weights"), trace.device_span("views.weights", self.device):
+            if self._view_template is None:
+                self._view1 = self.adj.refactor_view(keep1[self._edge_perm])
+                self._view2 = self.adj.refactor_view(keep2[self._edge_perm])
+                return {}
+            return {"w1": self._view_weights(keep1), "w2": self._view_weights(keep2)}
 
     def _view_weights(self, keep):
         return bipartite_renorm_weights(self._edge_users_dev, self._edge_items_dev,

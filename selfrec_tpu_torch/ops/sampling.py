@@ -6,19 +6,33 @@ sampler.py:23-27) with a vectorised sampler: draw uniform candidates, test
 membership in the user's rated set, redraw colliding lanes for a fixed
 number of rounds. Membership is a probe of a packed per-user bitmap
 (:func:`sample_negatives_bitmap`) or, where the bitmap is over its budget,
-a binary search of the per-user sorted rated CSR
-(:func:`sample_negatives`). Both draw the same numbers in the same order
-from a ``torch.Generator``, so for one generator state they return the
-same negatives; the numbers differ from the JAX package's, the rejection
+one ``torch.searchsorted`` a round over the rated pairs' sorted keys
+``user * n_items + item`` (:func:`sample_negatives`, :func:`rated_keys`).
+The JAX package searches each user's segment of the rated CSR step by
+step instead (:func:`searchsorted_in_segments`, kept as its counterpart):
+the same membership, but a dozen steps of small kernels a round, whose
+launch gaps made a captured step's time on the card vary from capture to
+capture by 5%. Both samplers draw the same numbers in the same order from
+a ``torch.Generator``, so for one generator state they return the same
+negatives; the numbers differ from the JAX package's, the rejection
 semantics are the same.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
 import torch
+
+
+def bitmap_fits(n_users: int, n_items: int) -> bool:
+    """Whether the (U, ceil(I/32)) uint32 rated bitmap fits
+    ``SELFREC_TPU_NEG_BITMAP_MB`` (default 512; base.py:453-471): the gate
+    between the bitmap sampler and the CSR one."""
+    budget_mb = float(os.environ.get("SELFREC_TPU_NEG_BITMAP_MB", "512"))
+    return n_users * ((n_items + 31) // 32) * 4 <= budget_mb * 1e6
 
 
 def pack_rated_bitmap(rated_offsets, rated_items, n_users: int, n_items: int):
@@ -85,21 +99,40 @@ def _lanes(user_idx: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     return users
 
 
+def rated_keys(rated_offsets: torch.Tensor, rated_items: torch.Tensor,
+               n_items: int) -> torch.Tensor:
+    """(nnz,) int64 keys ``user * n_items + item`` of the rated CSR, in its
+    order, which is sorted: its rows are the users in order and each row's
+    items ascend."""
+    counts = rated_offsets[1:] - rated_offsets[:-1]
+    users = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=rated_items.device), counts,
+        output_size=rated_items.numel())
+    return users * n_items + rated_items.to(torch.int64)
+
+
 def sample_negatives(generator: torch.Generator, user_idx: torch.Tensor,
-                     rated_items: torch.Tensor, rated_offsets: torch.Tensor,
-                     n_items: int, shape: Tuple[int, ...], n_rounds: int = 8,
-                     n_search_steps: int = 16) -> torch.Tensor:
+                     rated_keys: torch.Tensor, n_items: int, shape: Tuple[int, ...],
+                     n_rounds: int = 8) -> torch.Tensor:
     """Uniform negatives for each (user, slot) in ``shape`` = (B,) or
-    (B, n_negs) with the CSR membership test (sampling.py:52-83): the
-    sampler for a rated bitmap over ``SELFREC_TPU_NEG_BITMAP_MB``. Draws as
+    (B, n_negs), a lane's candidate rated where its key ``user * n_items +
+    item`` is among ``rated_keys`` (:func:`rated_keys`; sampling.py:52-83
+    searches the CSR's segments instead): the sampler for a rated bitmap
+    over ``SELFREC_TPU_NEG_BITMAP_MB``. Draws as
     :func:`sample_negatives_bitmap` does, so the two return the same
     negatives for one generator state."""
     users = _lanes(user_idx, shape)
-    cand = _rejection_rounds(
-        generator, users, n_items, n_rounds,
-        lambda c: searchsorted_in_segments(rated_items, rated_offsets, users, c,
-                                           n_search_steps))
-    return cand.reshape(shape)
+    if rated_keys.numel() == 0:
+        is_rated = lambda c: torch.zeros(c.shape, dtype=torch.bool, device=c.device)
+    else:
+        row = users * n_items
+        last = rated_keys.numel() - 1
+
+        def is_rated(c):
+            q = row + c
+            return rated_keys[torch.searchsorted(rated_keys, q).clamp_(max=last)] == q
+
+    return _rejection_rounds(generator, users, n_items, n_rounds, is_rated).reshape(shape)
 
 
 def sample_negatives_bitmap(generator: torch.Generator, user_idx: torch.Tensor,

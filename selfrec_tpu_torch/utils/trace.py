@@ -11,6 +11,8 @@ of the eval, and the device time of the eval's ranking phases.
   current stream while a profiler records and the work runs on the card,
   outside a stream capture; the pairs are resolved only when read, after
   the caller's synchronise. Anywhere else it does nothing.
+- :func:`count` adds one to a named counter of what set-up built (the
+  adjacency's layout, the negatives' sampler); :func:`counts` reads them.
 - :func:`reset` starts a fresh record (every recommender's constructor
   calls it, so a run reads only its own spans); :func:`totals` reads it.
 
@@ -55,6 +57,7 @@ class _Record:
         self.pending: Dict[str, List[tuple]] = defaultdict(list)
         self.device_ms: Dict[str, float] = defaultdict(float)
         self.device_count: Dict[str, int] = defaultdict(int)
+        self.counts: Dict[str, int] = defaultdict(int)
         self.open: set = set()
 
 
@@ -110,6 +113,17 @@ def _device_span(name: str, device: torch.device):
     yield
     end.record(stream)
     _record.pending[name].append((start, end))
+
+
+def count(name: str) -> None:
+    """One more of ``name`` in the record's counters (``layout.EllAdj``,
+    ``sampler.csr``): no time, no range."""
+    _record.counts[name] += 1
+
+
+def counts() -> Dict[str, int]:
+    """The current record's counters."""
+    return dict(_record.counts)
 
 
 def _resolve(rec: _Record) -> None:

@@ -441,9 +441,10 @@ def test_csr_sampler_on_the_card_matches_the_cpu():
     bitmap = sampling.bitmap_to_device(
         sampling.pack_rated_bitmap(off, items, n_users, n_items), "cuda")
     users = torch.from_numpy(rng.integers(0, n_users, 4096)).cuda()
-    csr = sampling.sample_negatives(torch.Generator(device="cuda").manual_seed(3), users,
-                                    torch.from_numpy(items).cuda(), torch.from_numpy(off).cuda(),
-                                    n_items, shape=(4096, 8), n_search_steps=steps)
+    keys = sampling.rated_keys(torch.from_numpy(off).cuda(), torch.from_numpy(items).cuda(),
+                               n_items)
+    csr = sampling.sample_negatives(torch.Generator(device="cuda").manual_seed(3), users, keys,
+                                    n_items, shape=(4096, 8))
     bm = sampling.sample_negatives_bitmap(torch.Generator(device="cuda").manual_seed(3), users,
                                           bitmap, n_items, shape=(4096, 8))
     assert torch.equal(csr, bm)

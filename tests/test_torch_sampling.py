@@ -142,10 +142,9 @@ def test_csr_sampler_equals_the_bitmap_sampler(shape):
     bitmap = sampling.bitmap_to_device(
         sampling.pack_rated_bitmap(off, items, N_USERS, N_ITEMS), "cpu")
     users = torch.randint(0, N_USERS, (shape[0],), generator=torch.Generator().manual_seed(1))
-    steps = int(np.ceil(np.log2(int(np.diff(off).max()) + 1))) + 1
-    csr = sampling.sample_negatives(torch.Generator().manual_seed(9), users,
-                                    torch.from_numpy(items), torch.from_numpy(off), N_ITEMS,
-                                    shape=shape, n_rounds=8, n_search_steps=steps)
+    keys = sampling.rated_keys(torch.from_numpy(off), torch.from_numpy(items), N_ITEMS)
+    csr = sampling.sample_negatives(torch.Generator().manual_seed(9), users, keys, N_ITEMS,
+                                    shape=shape, n_rounds=8)
     bm = sampling.sample_negatives_bitmap(torch.Generator().manual_seed(9), users, bitmap,
                                           N_ITEMS, shape=shape, n_rounds=8)
     assert tuple(csr.shape) == shape
@@ -153,6 +152,24 @@ def test_csr_sampler_equals_the_bitmap_sampler(shape):
     per_user = users.repeat_interleave(shape[1]) if len(shape) == 2 else users
     rated = [set(items[off[u]:off[u + 1]].tolist()) for u in range(N_USERS)]
     assert not any(c in rated[u] for u, c in zip(per_user.tolist(), csr.reshape(-1).tolist()))
+
+
+def test_rated_keys_membership_equals_the_segment_search():
+    """The CSR sampler's membership (one searchsorted over the sorted keys
+    ``user * n_items + item``) equals the JAX package's segment search
+    (``searchsorted_in_segments``) on every (user, item) lane, empty
+    segments included."""
+    off, items = _csr_with_empty_segments()
+    keys = sampling.rated_keys(torch.from_numpy(off), torch.from_numpy(items), N_ITEMS)
+    assert bool((keys[1:] > keys[:-1]).all())
+    seg = torch.from_numpy(np.repeat(np.arange(N_USERS), N_ITEMS))
+    vals = torch.from_numpy(np.tile(np.arange(N_ITEMS), N_USERS))
+    steps = int(np.ceil(np.log2(int(np.diff(off).max()) + 1))) + 1
+    want = sampling.searchsorted_in_segments(torch.from_numpy(items), torch.from_numpy(off),
+                                             seg, vals, steps)
+    q = seg * N_ITEMS + vals
+    got = keys[torch.searchsorted(keys, q).clamp(max=keys.numel() - 1)] == q
+    assert torch.equal(got, want) and bool(want.any()) and not bool(want.all())
 
 
 def test_pointwise_batches_equal_jax():
@@ -200,14 +217,16 @@ def test_host_batches_knob_gives_jax_host_batches(monkeypatch, tiny_graph_datase
 
 def test_over_budget_bitmap_builds_the_csr_sampler(monkeypatch, tiny_graph_dataset):
     """A bitmap over ``SELFREC_TPU_NEG_BITMAP_MB`` takes the CSR branch
-    (base.py:453-471, 508-527), whose search depth is ceil(log2(max_deg +
-    1)) + 1 as in the JAX package; it draws the bitmap model's negatives
-    from the same generator state."""
+    (base.py:453-471, 508-527), over the JAX package's rated CSR; it
+    searches the CSR's sorted keys (``user * n_items + item``), and draws
+    the bitmap model's negatives from the same generator state."""
     jm, tm = _lightgcn_pair(tiny_graph_dataset)
     monkeypatch.setenv("SELFREC_TPU_NEG_BITMAP_MB", "0.0001")
     tm.build()
     assert tm._rated_bitmap is None
-    assert tm._n_search_steps == jm._n_search_steps
+    rows = np.repeat(np.arange(tm.data.user_num), np.diff(np.asarray(jm._rated_offsets)))
+    np.testing.assert_array_equal(tm._rated_keys.numpy(),
+                                  rows * tm.data.item_num + np.asarray(jm._rated_items))
     np.testing.assert_array_equal(tm._rated_items.numpy(), np.asarray(jm._rated_items))
     np.testing.assert_array_equal(tm._rated_offsets.numpy(), np.asarray(jm._rated_offsets))
     monkeypatch.delenv("SELFREC_TPU_NEG_BITMAP_MB")
