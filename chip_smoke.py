@@ -49,14 +49,19 @@ SimGCL, int8x8 dense layout (SELFREC_TPU_DENSE=1):
    step; finite losses, K1 launched. Three more (graphed) under torch.profiler.
 4. eval phase: compute_embeddings and one fast_evaluation over all test
    users; K1 launches once per layer, the ranking kernels
-   (csrc/rank_topk.cu) once. One more eval under the profiler. Then the
+   (csrc/rank_topk.cu) once, and the eval takes rank_merge's hit mask,
+   which must equal the host search of the same ids (every eval path that
+   takes the kernels checks this). One more eval under the profiler. Then the
    ranking kernels alone on the model's embeddings (31,667 test users,
    38,048 items, D 64, k 20): their ids score like the plain twin's and
    like today's library path's (GEMM, ``torch.where`` and ``torch.topk``
    over the 31 blocks of 1,024) position by position in float64
    rescoring (rtol 1e-5), no rated id and none repeated; the kernels
    timed (and each alone under the profiler) against their 2.30 ms f32
-   FMA bound, beside the plain twin and the library path.
+   FMA bound, beside the plain twin and the library path; rank_merge's
+   hit mask equal to the host search on yelp's ground truth and on slices
+   of up to 300 items at k 20 and 128, scores and ids unchanged by it, and
+   rank_merge timed with and without it on both ground truths.
 
 SGL (conf/SGL.yaml: n_layer 2, lambda 0.1, drop_rate 0.1, aug_type 1,
 temp 0.2), ELL layout (SELFREC_TPU_DENSE=0), and LightGCN on it:
@@ -1129,7 +1134,7 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
     embeddings of BUIR, SelfCF and SSL4Rec)."""
     import torch
 
-    from selfrec_tpu_torch.utils import metrics
+    from selfrec_tpu_torch.utils import metrics, trace
 
     from selfrec_tpu_torch.ops import rank_topk
 
@@ -1139,6 +1144,7 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
     for c in counters:
         c.launches = 0
     ranked = rank_topk.rank_topk.launches
+    tested = trace.counts().get("eval.hits.device", 0)
     t0 = time.time()
     model.user_emb, model.item_emb = model.embeddings()
     measure = model.fast_evaluation(0)
@@ -1146,6 +1152,12 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
     eval_ms = 1e3 * (time.time() - t0)
     launches = sum(c.launches for c in counters)
     RANK_LAUNCHES[tag] = rank_topk.rank_topk.launches - ranked
+    tested = trace.counts().get("eval.hits.device", 0) - tested
+    if tested != RANK_LAUNCHES[tag]:
+        raise RuntimeError(f"{tag} eval: {tested} evals took the card's hit test, "
+                           f"{RANK_LAUNCHES[tag]} the ranking kernels")
+    if tested:
+        hit_gate(tag, model)
     ue, ie = model.user_emb, model.item_emb
     if (tuple(ue.shape) != (model.data.user_num, width)
             or tuple(ie.shape) != (model.data.item_num, width)
@@ -1167,6 +1179,83 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
     return launches
 
 
+def host_hits(ids, offsets, items, n_items):
+    """The host's hit test (``metrics.ranking_evaluation_ids`` without a
+    mask): each (row, id) key searched among the sorted ground-truth keys
+    of the CSR ``offsets``, ``items`` (any order within a row)."""
+    import numpy as np
+
+    offsets, items = np.asarray(offsets, np.int64), np.asarray(items, np.int64)
+    ids = np.asarray(ids, np.int64)
+    keys = np.repeat(np.arange(len(offsets) - 1, dtype=np.int64), np.diff(offsets)) * n_items
+    keys = np.sort(keys + items)
+    want = np.arange(ids.shape[0], dtype=np.int64)[:, None] * n_items + ids
+    if len(keys) == 0:
+        return np.zeros(ids.shape, dtype=bool)
+    return keys[np.minimum(np.searchsorted(keys, want), len(keys) - 1)] == want
+
+
+def hit_gate(tag, model):
+    """The eval's hit mask from the card (``rank_merge``'s epilogue, as
+    ``_fast_measure`` takes it) on the model's embeddings equals the host
+    search of the same ids, and the metric strings from each are equal."""
+    from selfrec_tpu_torch.ops import ranking
+    from selfrec_tpu_torch.utils import metrics
+
+    data, hits = model.data, []
+    ids = ranking.topk_ids_from_embeddings(data, model.user_emb, model.item_emb, model.max_N,
+                                           block_size=model.eval_block_size, hits_out=hits)
+    offsets, items = data.test_gt_csr()
+    if len(hits) != 1 or not (hits[0] == host_hits(ids, offsets, items, data.item_num)).all():
+        raise RuntimeError(f"{tag} eval: the card's hit mask differs from the host search")
+    args = (offsets, items, ids, [model.max_N], data.item_num)
+    if metrics.ranking_evaluation_ids(*args, hit_mask=hits[0]) != metrics.ranking_evaluation_ids(
+            *args):
+        raise RuntimeError(f"{tag} eval: the metrics differ between the two hit tests")
+    log(f"[eval {tag}] hit test on the card equals the host search "
+        f"({int(hits[0].sum())} hits in {hits[0].size} ids)")
+
+
+def synthetic_gt(rng, n, n_items, ids, longest=300):
+    """A ground-truth CSR on the card, ascending in a row: 0 to ``longest``
+    random items a test user plus a random share (none to all) of its row
+    of ``ids`` (host, (n, k)), no repeats."""
+    import numpy as np
+    import torch
+
+    lengths = rng.integers(0, longest + 1, n)
+    keys = np.repeat(np.arange(n, dtype=np.int64), lengths) * n_items + rng.integers(
+        0, n_items, int(lengths.sum()))
+    take = rng.random(ids.shape) < rng.random((n, 1))
+    keys = np.unique(np.concatenate(
+        [keys, (np.arange(n, dtype=np.int64)[:, None] * n_items + ids)[take]]))
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(keys // n_items, minlength=n))])
+    return (torch.as_tensor(offsets, dtype=torch.int64, device="cuda"),
+            torch.as_tensor((keys % n_items).astype(np.int32), device="cuda"))
+
+
+def rank_hits_case(ue, ie, rated, uids, k, gt, host_gt, what):
+    """``rank_merge`` with its ground-truth test: scores and ids equal to
+    the call without it bit for bit, the mask equal to the host search
+    over ``host_gt`` (the same ground truth on the host, any order within
+    a row). Returns the share of ids that hit."""
+    import torch
+
+    from selfrec_tpu_torch.ops import rank_topk
+
+    scs, ids = rank_topk.rank_topk(ue, ie, rated, uids, k)
+    gscs, gids, hits = rank_topk.rank_topk(ue, ie, rated, uids, k, gt=gt)
+    torch.cuda.synchronize()
+    if not (torch.equal(gids, ids) and torch.equal(gscs.view(torch.int32),
+                                                   scs.view(torch.int32))):
+        raise RuntimeError(f"ranking kernels ({what}, k {k}): the ground-truth test changed "
+                           f"the scores or ids")
+    if not (hits.cpu().numpy() == host_hits(ids.cpu(), *host_gt, ie.shape[0])).all():
+        raise RuntimeError(f"ranking kernels ({what}, k {k}): the hit mask differs from the "
+                           f"host search")
+    return float(hits.float().mean())
+
+
 def rank_case(model, k=20):
     """The eval's ranking kernels alone on the model's embeddings, resident
     mask and test users; returns their row of the kernel table. Their ids
@@ -1175,8 +1264,12 @@ def rank_case(model, k=20):
     dense mask took before the kernels) position by position in float64
     rescoring (rtol 1e-5 / atol 1e-6: f32 sums in another order may swap
     near-ties), their scores within 1e-5 of the plain twin's, with no rated
-    id and none repeated. The bound: 2 * n * I * D f32 FMA operations at
-    67 TFLOP/s; the bytes (the two tables once, the answer) take less."""
+    id and none repeated. Then ``rank_merge``'s ground-truth test
+    (:func:`rank_hits_case`) on yelp's ground truth at k and on slices of
+    up to 300 items at k and K_MAX, and the kernels timed with and without
+    it (``rank_merge`` alone on both ground truths). The bound: 2 * n * I * D f32 FMA operations at 67 TFLOP/s; the
+    bytes (the two tables once, the answer) take less."""
+    import numpy as np
     import torch
 
     from selfrec_tpu_torch.ops import rank_topk, ranking
@@ -1207,14 +1300,43 @@ def rank_case(model, k=20):
     if bool(rated[uids[:, None], ids].any()) or bool((srt[:, 1:] == srt[:, :-1]).any()):
         raise RuntimeError("ranking kernels: a rated or repeated id returned")
     id_off = float((ids != pids).double().mean())
+    gt = ranking.get_test_gt(data, "cuda")
+    hit_share = rank_hits_case(ue, ie, rated, uids, k, gt, data.test_gt_csr(), "yelp")
+    rng = np.random.default_rng(20)
+    long_share, long_merge_ms = {}, {}
+    for kk in (k, rank_topk.K_MAX):
+        kk_ids = rank_topk.rank_topk(ue, ie, rated, uids, kk)[1].cpu().numpy()
+        long_gt = synthetic_gt(rng, n, n_items, kk_ids)
+        long_share[kk] = rank_hits_case(ue, ie, rated, uids, kk, long_gt,
+                                        tuple(t.cpu().numpy() for t in long_gt),
+                                        "slices of up to 300")
+        # rank_merge alone at k kk, without and with the epilogue searching
+        # slices of up to 300 items (yelp's slices of one never iterate)
+        long_merge_ms[kk] = [
+            kernel_only_ms(lambda kk=kk: rank_topk.rank_topk(ue, ie, rated, uids, kk),
+                           "rank_merge_kernel"),
+            kernel_only_ms(lambda kk=kk, g=long_gt: rank_topk.rank_topk(ue, ie, rated, uids,
+                                                                        kk, gt=g),
+                           "rank_merge_kernel")]
+    shares = ", ".join(f"{100 * v:.2f}%" for v in long_share.values())
+    merges = "; ".join(f"k {kk} {a} without, {b} with" for kk, (a, b) in long_merge_ms.items())
+    log(f"[kernel] ranking hit test: rank_merge's mask equals the host search on yelp's "
+        f"ground truth ({100 * hit_share:.3f}% of ids hit) and on slices of up to 300 items "
+        f"at k {k} and {rank_topk.K_MAX} ({shares} hit); scores and ids unchanged bit for "
+        f"bit; rank_merge alone on those slices (ms): {merges}")
 
     def call():
         return rank_topk.rank_topk(ue, ie, rated, uids, k)
 
+    def call_hits():
+        return rank_topk.rank_topk(ue, ie, rated, uids, k, gt=gt)
+
     ms = cuda_ms(call, reps=20)
     ms_b2b = back_to_back_ms(call, ms)
+    ms_hits = cuda_ms(call_hits, reps=20)
     partial_ms = kernel_only_ms(call, "rank_partial_kernel")
     merge_ms = kernel_only_ms(call, "rank_merge_kernel")
+    merge_hits_ms = kernel_only_ms(call_hits, "rank_merge_kernel")
     plain_ms = cuda_ms(lambda: rank_topk.rank_topk_plain(ue, ie, rated, uids, k), reps=3)
     library_ms = cuda_ms(lambda: ranking._topk_all_blocks_dense(ue, ie, plan.uids_all, rated,
                                                                 k), reps=10)
@@ -1224,14 +1346,18 @@ def rank_case(model, k=20):
     row = {"shape": [n, n_items, d, k], "tag": "yelp eval", "slices": slices,
            "tiles_per_slice": tiles_per_slice, "match": "rescored rtol 1e-5",
            "max_abs_err": err, "ids_differ": id_off, "ms": ms, "ms_back_to_back": ms_b2b,
-           "partial_ms": partial_ms, "merge_ms": merge_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bms, "bound_by": bound_by}
+           "partial_ms": partial_ms, "merge_ms": merge_ms, "ms_with_hits": ms_hits,
+           "merge_with_hits_ms": merge_hits_ms, "hit_share": hit_share,
+           "merge_long_slices_ms": {str(kk): v for kk, v in long_merge_ms.items()},
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
+           "bound_by": bound_by}
     log(f"[kernel] ranking n={n} I={n_items} D={d} k={k}: ids score like the plain twin's and "
         f"the library path's ({100 * id_off:.4f}% of ids differ from the twin's), scores "
         f"within {err:.2e}; {ms:.4f} ms ({ms_b2b:.4f} back to back; rank_partial alone "
-        f"{partial_ms}, rank_merge alone {merge_ms}, {slices} slices of {tiles_per_slice} "
-        f"tiles; bound {bms:.4f} ms by {bound_by}, plain {plain_ms:.3f} ms, GEMM + where + "
-        f"topk over {plan.uids_all.shape[0]} blocks {library_ms:.4f} ms)")
+        f"{partial_ms}, rank_merge alone {merge_ms}, with its hit test {merge_hits_ms} "
+        f"(the call {ms_hits:.4f} ms), {slices} slices of {tiles_per_slice} tiles; bound "
+        f"{bms:.4f} ms by {bound_by}, plain {plain_ms:.3f} ms, GEMM + where + topk over "
+        f"{plan.uids_all.shape[0]} blocks {library_ms:.4f} ms)")
     return row
 
 

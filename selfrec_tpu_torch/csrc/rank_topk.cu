@@ -60,7 +60,12 @@
 //
 // rank_merge: one warp a user; lane s holds the head of slice s's sorted
 // list, and k rounds of a warp max over the heads pop the answer in order.
-// It reads 8 * slices * k bytes a user.
+// It reads 8 * slices * k bytes a user. Given the test users' ground truth
+// (a CSR, items sorted within each user), its epilogue tests the answer:
+// lane l keeps the ids of places l, l + 32, ... (at most K_MAX / 32) and
+// binary-searches each in the user's slice, so hits[u, q] is 1 exactly where
+// id q is a ground-truth item of user u. The host then reads n * k bytes of
+// answers in place of building n * k keys and searching them itself.
 //
 // Plain C interface, loaded with ctypes (selfrec_tpu_torch/ops/rank_topk.py).
 
@@ -420,16 +425,21 @@ rank_partial_kernel(const float* __restrict__ ut, const float* __restrict__ it,
   }
 }
 
-// one warp a user; grid ceil(n / MERGE_WARPS) of MERGE_WARPS warps
+// one warp a user; grid ceil(n / MERGE_WARPS) of MERGE_WARPS warps; HITS:
+// the ground-truth test of the answer
+template <bool HITS>
 __global__ void __launch_bounds__(MERGE_WARPS * 32)
 rank_merge_kernel(const long long* __restrict__ keys, int n, int slices, int k,
-                  float* __restrict__ scores, long long* __restrict__ ids) {
+                  float* __restrict__ scores, long long* __restrict__ ids,
+                  const long long* __restrict__ gt_off, const int* __restrict__ gt_items,
+                  uint8_t* __restrict__ hits) {
   const int lane = threadIdx.x & 31;
   const int u = blockIdx.x * MERGE_WARPS + (threadIdx.x >> 5);
   if (u >= n) return;
   const long long* row = keys + static_cast<long long>(u) * slices * k;
   int p = 0;
   long long head = lane < slices ? row[lane * k] : NO_KEY;
+  long long mine[K_MAX / 32];  // HITS: the ids of places lane, lane + 32, ...
   for (int q = 0; q < k; ++q) {
     long long best = head;
 #pragma unroll
@@ -444,6 +454,26 @@ rank_merge_kernel(const long long* __restrict__ keys, int n, int slices, int k,
     if (lane == 0) {
       scores[static_cast<long long>(u) * k + q] = key_value(best);
       ids[static_cast<long long>(u) * k + q] = key_id(best);
+    }
+    if constexpr (HITS) {
+#pragma unroll
+      for (int m = 0; m < K_MAX / 32; ++m)
+        if (q == lane + 32 * m) mine[m] = key_id(best);
+    }
+  }
+  if constexpr (HITS) {
+    const long long lo0 = gt_off[u], hi0 = gt_off[u + 1];
+#pragma unroll
+    for (int m = 0; m < K_MAX / 32; ++m) {
+      const int q = lane + 32 * m;
+      if (q < k) {
+        long long lo = lo0, hi = hi0;  // the first item of the slice not below mine[m]
+        while (lo < hi) {
+          const long long mid = (lo + hi) >> 1;
+          if (gt_items[mid] < mine[m]) lo = mid + 1; else hi = mid;
+        }
+        hits[static_cast<long long>(u) * k + q] = lo < hi0 && gt_items[lo] == mine[m];
+      }
     }
   }
 }
@@ -510,14 +540,29 @@ int selfrec_rank_partial(const void* ut, const void* it, const void* rated, long
 }
 
 // keys (n, slices, k) int64 from selfrec_rank_partial, slices <= 32;
-// scores (n, k) f32 and ids (n, k) int64, fully written. Returns as above.
+// scores (n, k) f32 and ids (n, k) int64, fully written. gt_off (n + 1)
+// int64 and gt_items int32, each row's items ascending, and hits (n, k)
+// uint8, fully written: all three or none (then no test). Returns as above.
 int selfrec_rank_merge(const void* keys, int n, int slices, int k, void* scores, void* ids,
-                       void* stream) {
-  if (n < 1 || slices < 1 || slices > 32 || k < 1 || k > K_MAX) return -1;
-  rank_merge_kernel<<<(n + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(keys), n, slices, k, static_cast<float*>(scores),
-      static_cast<long long*>(ids));
+                       const void* gt_off, const void* gt_items, void* hits, void* stream) {
+  const int given = (gt_off != nullptr) + (gt_items != nullptr) + (hits != nullptr);
+  if (n < 1 || slices < 1 || slices > 32 || k < 1 || k > K_MAX || (given != 0 && given != 3))
+    return -1;
+  const unsigned grid = (n + MERGE_WARPS - 1) / MERGE_WARPS;
+  auto* st = static_cast<cudaStream_t>(stream);
+  const auto* kp = static_cast<const long long*>(keys);
+  auto* sp = static_cast<float*>(scores);
+  auto* ip = static_cast<long long*>(ids);
+  const auto* op = static_cast<const long long*>(gt_off);
+  const auto* gp = static_cast<const int*>(gt_items);
+  auto* hp = static_cast<uint8_t*>(hits);
+  if (given) {
+    rank_merge_kernel<true><<<grid, MERGE_WARPS * 32, 0, st>>>(kp, n, slices, k, sp, ip, op, gp,
+                                                                hp);
+  } else {
+    rank_merge_kernel<false><<<grid, MERGE_WARPS * 32, 0, st>>>(kp, n, slices, k, sp, ip, op,
+                                                                 gp, hp);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,7 +16,11 @@ matrix:
 2. a user's ``slices × k`` candidates are merged into its top-``k``.
 
 A pair is ranked by one int64 key (:func:`sort_keys`), so every order is
-total and the answer does not depend on the slices.
+total and the answer does not depend on the slices. Given the test users'
+ground truth (``gt``: a CSR, items ascending within each user), the merge
+also tests its answer: ``hits[r, q]`` is true exactly where ``ids[r, q]``
+is a ground-truth item of test user r, so the eval's metrics need no
+search on the host (:func:`hits_plain` is the test in plain torch).
 
 The eval's CPU path takes :func:`rank_topk_plain`, at any k. For CUDA
 tensors :func:`rank_topk` launches the two hand-written kernels of
@@ -27,7 +31,8 @@ kernels.
 
 Spans (:mod:`selfrec_tpu_torch.utils.trace`): host span ``rank.fused``
 around each call on the card; device spans ``rank.score`` (the operand
-copies and ``rank_partial``) and ``rank.topk`` (``rank_merge``).
+copies and ``rank_partial``) and ``rank.topk`` (``rank_merge``, its
+ground-truth test included).
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ def _load():
             lib.selfrec_rank_partial.restype = ctypes.c_int
             lib.selfrec_rank_partial.argtypes = [p, p, p, ll, p, i, i, i, ll, ll, i, i, i, p, p]
             lib.selfrec_rank_merge.restype = ctypes.c_int
-            lib.selfrec_rank_merge.argtypes = [p, i, i, i, p, p, p]
+            lib.selfrec_rank_merge.argtypes = [p, i, i, i, p, p, p, p, p, p]
             _lib = lib
     return _lib
 
@@ -90,15 +95,31 @@ def key_ids(keys: torch.Tensor) -> torch.Tensor:
     return 0xFFFFFFFF - (keys & 0xFFFFFFFF)
 
 
+def hits_plain(ids: torch.Tensor, gt_offsets: torch.Tensor, gt_items: torch.Tensor
+               ) -> torch.Tensor:
+    """``rank_merge``'s epilogue in plain torch: (n, k) bool, true where
+    ``ids[r, q]`` is in ``gt_items[gt_offsets[r]:gt_offsets[r + 1]]``, by
+    membership of (row, id) keys among the ground truth's."""
+    if ids.numel() == 0 or gt_items.numel() == 0:
+        return torch.zeros(ids.shape, dtype=torch.bool, device=ids.device)
+    span = int(max(ids.max(), gt_items.max())) + 1
+    rows = torch.arange(ids.shape[0], device=ids.device)
+    gt_keys = rows.repeat_interleave(gt_offsets.diff()) * span + gt_items
+    return torch.isin(rows[:, None] * span + ids, gt_keys)
+
+
 def rank_topk_plain(user_emb: torch.Tensor, item_emb: torch.Tensor, rated: torch.Tensor,
-                    uids: torch.Tensor, k: int, slices: int = PLAIN_SLICES
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    uids: torch.Tensor, k: int, slices: int = PLAIN_SLICES, gt=None):
     """The kernels' function in plain torch, by the same two stages over
     ``slices`` equal slices (the last shorter), users in blocks: each
     slice's f32 scores, rated items set to ``MASK_VALUE``, the slice's best
     ``k`` keys; then the best ``k`` of a user's candidates. Returns
     (scores (n, k) f32, ids (n, k) int64), descending, ties by the lowest
-    id."""
+    id; with ``gt`` = (offsets (n + 1,) int64, items int32), each user's
+    ground truth ascending, also ``hits`` (n, k) bool (:func:`hits_plain`).
+    Any k."""
+    if gt is not None:
+        _check_gt(gt, uids)
     n_items = item_emb.shape[0]
     width = -(-n_items // slices)
     idx = torch.arange(n_items, device=item_emb.device, dtype=torch.int64)
@@ -115,10 +136,12 @@ def rank_topk_plain(user_emb: torch.Tensor, item_emb: torch.Tensor, rated: torch
         top = torch.topk(torch.cat(cands, dim=1), k, dim=1).values
         scores.append(key_values(top))
         ids.append(key_ids(top))
-    if not scores:
-        return (torch.empty((0, k), dtype=torch.float32, device=user_emb.device),
-                torch.empty((0, k), dtype=torch.int64, device=user_emb.device))
-    return torch.cat(scores), torch.cat(ids)
+    if scores:
+        scores, ids = torch.cat(scores), torch.cat(ids)
+    else:
+        scores = torch.empty((0, k), dtype=torch.float32, device=user_emb.device)
+        ids = torch.empty((0, k), dtype=torch.int64, device=user_emb.device)
+    return (scores, ids) if gt is None else (scores, ids, hits_plain(ids, *gt))
 
 
 def _check(user_emb, item_emb, rated, uids, k):
@@ -147,6 +170,23 @@ def _check(user_emb, item_emb, rated, uids, k):
         raise ValueError("rank_topk needs contiguous operands")
 
 
+def _check_gt(gt, uids):
+    offsets, items = gt
+    if offsets.dtype != torch.int64 or offsets.dim() != 1:
+        raise TypeError(f"rank_topk takes int64 ground-truth offsets (n + 1,), got "
+                        f"{offsets.dtype} {tuple(offsets.shape)}")
+    if items.dtype != torch.int32 or items.dim() != 1:
+        raise TypeError(f"rank_topk takes int32 ground-truth items, got {items.dtype} "
+                        f"{tuple(items.shape)}")
+    if offsets.shape[0] != uids.shape[0] + 1:
+        raise ValueError(f"ground-truth offsets of {offsets.shape[0]} rows for "
+                         f"{uids.shape[0]} test users")
+    if not offsets.device == items.device == uids.device:
+        raise ValueError("rank_topk: the ground truth lies on another device than the users")
+    if not (offsets.is_contiguous() and items.is_contiguous()):
+        raise ValueError("rank_topk needs a contiguous ground truth")
+
+
 def slice_plan(n: int, n_items: int, device) -> Tuple[int, int]:
     """(tiles_per_slice, slices) of ``rank_partial``'s grid: the most slices
     of whole item tiles whose CTAs still fit the card's resident slots at
@@ -167,17 +207,23 @@ def _operand(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def rank_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, rated: torch.Tensor,
-              uids: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+              uids: torch.Tensor, k: int, gt=None):
     """Each test user's top ``k`` items: ``user_emb[uids]`` (f32, (users,
     D)) against every row of ``item_emb`` (f32, (items, D)), items with
     ``rated[uids[r], item] != 0`` (int8) at ``MASK_VALUE``. Returns
     (scores (n, k) f32, ids (n, k) int64), descending, ties by the lowest
     id. ``uids`` must index rows of ``rated`` (not checked: that would
-    read them back from the card).
+    read them back from the card). With ``gt`` = (offsets (n + 1,) int64,
+    items int32) on the same device, test user r's ground truth being
+    ``items[offsets[r]:offsets[r + 1]]`` ascending (not checked either),
+    ``rank_merge`` tests its answer and the call returns (scores, ids,
+    hits), ``hits`` (n, k) bool; scores and ids are the same either way.
 
     Launches ``rank_partial`` and ``rank_merge`` (sm_90a) or raises; the
     CPU's version is :func:`rank_topk_plain`."""
     _check(user_emb, item_emb, rated, uids, k)
+    if gt is not None:
+        _check_gt(gt, uids)
     device = user_emb.device
     if device.type != "cuda":
         raise RuntimeError(f"rank_topk: no kernel for device {device} (the CPU takes "
@@ -187,8 +233,10 @@ def rank_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, rated: torch.Tenso
     n_items = item_emb.shape[0]
     scores = torch.empty((n, k), dtype=torch.float32, device=device)
     ids = torch.empty((n, k), dtype=torch.int64, device=device)
+    hits = None if gt is None else torch.empty((n, k), dtype=torch.uint8, device=device)
+    out = (scores, ids) if gt is None else (scores, ids, hits.view(torch.bool))
     if n == 0:
-        return scores, ids
+        return out
     tiles_per_slice, slices = slice_plan(n, n_items, device)
     dp, n_pad, i_pad = -(-d // BK) * BK, -(-n // BM) * BM, -(-n_items // BN) * BN
     keys = torch.empty((n, slices, k), dtype=torch.int64, device=device)
@@ -203,13 +251,15 @@ def rank_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, rated: torch.Tenso
                 keys.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"rank_partial kernel launch failed: error {rc}")
+        gt_ptrs = (None, None, None) if gt is None else (
+            gt[0].data_ptr(), gt[1].data_ptr(), hits.data_ptr())
         with trace.device_span("rank.topk", device):
             rc = lib.selfrec_rank_merge(keys.data_ptr(), n, slices, k, scores.data_ptr(),
-                                        ids.data_ptr(), stream)
+                                        ids.data_ptr(), *gt_ptrs, stream)
         if rc != 0:
             raise RuntimeError(f"rank_merge kernel launch failed: error {rc}")
     rank_topk.launches += 1
-    return scores, ids
+    return out
 
 
 rank_topk.launches = 0

@@ -21,7 +21,9 @@ no block loop on the CPU, nor on the card for k <= ``rank_topk.K_MAX``:
 :mod:`selfrec_tpu_torch.ops.rank_topk` ranks every test user at once, by
 two hand-written kernels on the card (scores, mask and each user's top-k
 in one pass, the score matrix never written) and by their plain twin
-``rank_topk_plain`` on the CPU.
+``rank_topk_plain`` on the CPU. On that route the ranking also tests each
+returned id against the test user's ground truth (:func:`get_test_gt`),
+which :func:`topk_ids_from_embeddings` hands its caller as a host mask.
 
 Two top-k orders: score-function ranking (:func:`rec_list_from_score_fn`,
 :func:`topk_scores`, :func:`topk_scores_masked`,
@@ -34,12 +36,13 @@ tie order is unspecified, since continuous embedding scores do not tie in
 practice.
 
 Spans (:mod:`selfrec_tpu_torch.utils.trace`): ``setup.eval_plan`` where
-the plan or the resident mask is built; around the ranking ``rank.blocks``
-(enqueueing the work) and ``rank.copy`` (the ids to the host); in the
+the plan, the resident mask or the device ground truth is built; around
+the ranking ``rank.blocks`` (enqueueing the work) and ``rank.copy`` (the
+ids, and the hit mask where there is one, to the host); in the
 block scans each block's ``rank.score`` (scores and mask) and
 ``rank.topk`` as device spans, and in ``rank_topk`` its own (``rank.fused``
 a call on the card, ``rank.score`` its scoring pass, ``rank.topk`` its
-merge).
+merge). Counter ``eval.hits.device``: a ranking that tested its own ids.
 """
 
 from __future__ import annotations
@@ -112,6 +115,26 @@ def get_rated_dense(data, device) -> Optional[torch.Tensor]:
         m[rows, cols] = 1
     data._rated_dense_cache = m
     return m
+
+
+def get_test_gt(data, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each test user's ground-truth items as a CSR on ``device``: offsets
+    (n + 1,) int64 and int32 items, ascending within each user, rows in
+    test-user order (``data.test_gt_csr``'s, which the plan ranks in).
+    Sorting loses nothing the metrics read: insertion order matters only
+    to IDCG, which reads the counts. Built once and cached on ``data``."""
+    cached = getattr(data, "_test_gt_cache", None)
+    if cached is not None and cached[0].device == torch.device(device):
+        return cached
+    with trace.span("setup.eval_plan"):
+        offsets, items = data.test_gt_csr()
+        offsets = np.asarray(offsets, dtype=np.int64)
+        rows = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+        items = np.asarray(items, dtype=np.int32)[np.lexsort((items, rows))]
+        cached = (torch.as_tensor(offsets, device=device),
+                  torch.as_tensor(items, device=device))
+    data._test_gt_cache = cached
+    return cached
 
 
 def _mask_rated(scores: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor):
@@ -336,37 +359,57 @@ def _topk_all_blocks_dense(user_emb, item_emb, uids_all, rated, k: int):
 
 
 @torch.no_grad()
-def _ranked(data, user_emb, item_emb, k: int, block_size: int):
+def _ranked(data, user_emb, item_emb, k: int, block_size: int, test_hits: bool = False):
     """The ``auto`` dispatch (ranking.py:309-318). Without the incidence
     from :func:`get_rated_dense`, the scatter scan. With it, CPU tensors
     take :func:`rank_topk.rank_topk_plain` at any k; CUDA tensors take the
     kernels (:func:`rank_topk.rank_topk`) for k up to ``rank_topk.K_MAX``
-    and the dense-mask block scan past it."""
+    and the dense-mask block scan past it. Returns (plan, scores, ids,
+    hits) on the host; with ``test_hits`` the plain twin and the kernels
+    also test each id against :func:`get_test_gt`, and ``hits`` is their
+    (n, k) bool mask, counted as ``eval.hits.device``; None on the other
+    routes and without ``test_hits``."""
     eval_topk_recall()
     device = user_emb.device
     plan = get_eval_plan(data, block_size, device)
     rated = get_rated_dense(data, device)
+    # the routes of the plain twin and the kernels, which can test their ids
+    twin = rated is not None and (device.type == "cpu" or k <= rank_topk.K_MAX)
+    gt = get_test_gt(data, device) if twin and test_hits else None
+    hits = None
     with trace.span("rank.blocks"):
         ue, ie = user_emb.float().contiguous(), item_emb.float().contiguous()
+        rank = rank_topk.rank_topk_plain if device.type == "cpu" else rank_topk.rank_topk
         if rated is None:
             scs, idss = _topk_all_blocks(ue, ie, plan, k)
-        elif device.type == "cpu":
-            scs, idss = rank_topk.rank_topk_plain(ue, ie, rated, plan.uids, k)
-        elif k <= rank_topk.K_MAX:
-            scs, idss = rank_topk.rank_topk(ue, ie, rated, plan.uids, k)
-        else:
+        elif not twin:
             scs, idss = _topk_all_blocks_dense(ue, ie, plan.uids_all, rated, k)
+        elif gt is None:
+            scs, idss = rank(ue, ie, rated, plan.uids, k)
+        else:
+            scs, idss, hits = rank(ue, ie, rated, plan.uids, k, gt=gt)
+            trace.count("eval.hits.device")
     n = len(plan.user_ids)
     with trace.span("rank.copy"):
         return (plan, scs.reshape(-1, k)[:n].cpu().numpy(),
-                idss.reshape(-1, k)[:n].cpu().numpy())
+                idss.reshape(-1, k)[:n].cpu().numpy(),
+                None if hits is None else hits.cpu().numpy())
 
 
 def topk_ids_from_embeddings(data, user_emb, item_emb, k: int,
-                             block_size: int = 1024) -> np.ndarray:
+                             block_size: int = 1024, *,
+                             hits_out: Optional[list] = None) -> np.ndarray:
     """(n_test_users, k) top item ids (internal), rows in test-user order —
-    the raw-array path of per-epoch fast_evaluation (ranking.py:321-333)."""
-    _, _, ids = _ranked(data, user_emb, item_emb, k, block_size)
+    the raw-array path of per-epoch fast_evaluation (ranking.py:321-333).
+    ``hits_out``, a list the caller owns: where the ranking tests its own
+    answer (the resident mask, on the CPU or on the card up to
+    ``rank_topk.K_MAX``), the (n_test_users, k) bool host mask is appended
+    to it, true where the id is one of the test user's ground-truth items
+    (``data.test_gt_csr``); on the other routes it is left as it is."""
+    _, _, ids, hits = _ranked(data, user_emb, item_emb, k, block_size,
+                              test_hits=hits_out is not None)
+    if hits is not None:
+        hits_out.append(hits)
     return ids
 
 
@@ -379,7 +422,7 @@ def rec_list_from_embeddings(data, user_emb, item_emb, k: int,
     :mod:`selfrec_tpu_torch.parallel.topk`) takes each block of the plan in
     place of the all-blocks scan."""
     if topk_impl is None:
-        plan, scores, ids = _ranked(data, user_emb, item_emb, k, block_size)
+        plan, scores, ids, _ = _ranked(data, user_emb, item_emb, k, block_size)
         return assemble_rec_list(data, plan.user_ids, ids, scores)
     with torch.no_grad():
         plan = get_eval_plan(data, block_size, user_emb.device)

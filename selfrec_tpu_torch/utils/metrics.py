@@ -11,7 +11,9 @@ Parity notes (each quirk reproduced deliberately — see SURVEY.md §2 #24):
   reference writes to its performance files (util/evaluation.py:135-162).
 
 Both ranking evaluations are the ``metrics.ids`` span
-(:mod:`selfrec_tpu_torch.utils.trace`).
+(:mod:`selfrec_tpu_torch.utils.trace`). ``ranking_evaluation_ids`` counts
+``eval.hits.host`` when it searches the ground truth itself (the ranking
+counts ``eval.hits.device`` where it made the hit mask).
 """
 
 from __future__ import annotations
@@ -110,7 +112,7 @@ def ranking_evaluation(origin: Origin, res: RecList, top_ns: Sequence[int]) -> L
 @trace.span("metrics.ids")
 def ranking_evaluation_ids(
     test_offsets, test_items, top_ids, top_ns: Sequence[int], n_items: int,
-    sorted_test_keys=None,
+    sorted_test_keys=None, hit_mask=None,
 ) -> List[str]:
     """Vectorized ``ranking_evaluation`` over internal integer ids.
 
@@ -121,7 +123,11 @@ def ranking_evaluation_ids(
     ``test_offsets``/``test_items`` — CSR of each test user's ground-truth
     item ids in INSERTION order, rows in the same user order as
     ``top_ids`` (n_users, K); ``n_items`` — catalog size (for key hashing).
-    Exact-equality vs the string path: tests/test_metrics.py.
+    ``hit_mask`` — (n_users, K) bool, true where ``top_ids`` holds a
+    ground-truth item of its row, as the ranking tested it
+    (``ranking.topk_ids_from_embeddings``'s ``hits_out``): then no key is
+    built and nothing searched. Equal strings to the JAX package's and the
+    string path's: tests/test_torch_eval.py.
     """
     import numpy as np
 
@@ -144,35 +150,45 @@ def ranking_evaluation_ids(
             "test user with zero ground-truth items in ranking_evaluation_ids")
     total_num = int(len_u.sum())
 
-    if sorted_test_keys is None:
-        # callers that eval per-epoch should precompute this once: np.isin
-        # re-sorts the (row*n_items + item) ground-truth keys every call
-        # (see Interaction.test_gt_sorted_keys)
-        row_of_test = np.repeat(np.arange(n_users, dtype=np.int64), len_u)
-        sorted_test_keys = np.sort(row_of_test * n_items + test_items)
-    top_keys = np.arange(n_users, dtype=np.int64)[:, None] * n_items + top_ids
-    if len(sorted_test_keys) == 0:
-        # empty ground truth: all misses (the -1 clamp below would
-        # otherwise index an empty array — advisor round-3 finding)
-        hit_mask = np.zeros((n_users, K), dtype=bool)
+    if hit_mask is not None:
+        hit_mask = np.asarray(hit_mask, dtype=bool)
+        if hit_mask.shape != top_ids.shape:
+            raise ValueError(f"hit mask {hit_mask.shape} is not the shape of the top "
+                             f"ids {top_ids.shape}")
     else:
-        pos = np.searchsorted(sorted_test_keys, top_keys.ravel())
-        pos = np.minimum(pos, len(sorted_test_keys) - 1)
-        hit_mask = (sorted_test_keys[pos] == top_keys.ravel()
-                    ).reshape(n_users, K)
+        trace.count("eval.hits.host")
+        if sorted_test_keys is None:
+            # callers that eval per-epoch should precompute this once: np.isin
+            # re-sorts the (row*n_items + item) ground-truth keys every call
+            # (see Interaction.test_gt_sorted_keys)
+            row_of_test = np.repeat(np.arange(n_users, dtype=np.int64), len_u)
+            sorted_test_keys = np.sort(row_of_test * n_items + test_items)
+        top_keys = np.arange(n_users, dtype=np.int64)[:, None] * n_items + top_ids
+        if len(sorted_test_keys) == 0:
+            # empty ground truth: all misses (the -1 clamp below would
+            # otherwise index an empty array — advisor round-3 finding)
+            hit_mask = np.zeros((n_users, K), dtype=bool)
+        else:
+            pos = np.searchsorted(sorted_test_keys, top_keys.ravel())
+            pos = np.minimum(pos, len(sorted_test_keys) - 1)
+            hit_mask = (sorted_test_keys[pos] == top_keys.ravel()
+                        ).reshape(n_users, K)
 
     w = 1.0 / np.log2(np.arange(K, dtype=np.float64) + 2.0)
     cum_w = np.concatenate([[0.0], np.cumsum(w)])
+    # the hits alone (a few per user at most): each row's in rank order, so
+    # a user's DCG is summed best rank first, as the string path sums it
+    hit_row, hit_rank = np.divmod(np.flatnonzero(hit_mask), K)
 
     measure: List[str] = []
     for n in top_ns:
-        m = hit_mask[:, :n]
-        hits_u = m.sum(axis=1)
+        keep = hit_rank < n
+        hits_u = np.bincount(hit_row[keep], minlength=n_users)
         hit_num = int(hits_u.sum())
         hr = round(hit_num / total_num, 5)
         prec = round(hit_num / (n_users * n), 5)
         rec = round(float(np.mean(hits_u / len_u)), 5)
-        dcg = m @ w[:n]
+        dcg = np.bincount(hit_row[keep], weights=w[hit_rank[keep]], minlength=n_users)
         idcg = cum_w[np.minimum(len_u, n)]
         nd = round(float(np.sum(dcg / idcg) / n_users), 5)
         measure.append("Top " + str(n) + "\n")

@@ -104,6 +104,69 @@ def test_metric_strings_equal_jax_and_the_string_path(both_data):
     assert jax_metrics.ranking_evaluation(jd.test_set, rec, [5, 10, 20]) == got
 
 
+def _gt_case(seed, n_users, n_items, k, all_miss):
+    """Ground truth of 1 to 300 items a user in insertion order (not sorted)
+    and top-k lists biased toward it, or drawn only outside it; the string
+    path's inputs, the CSR and the hit mask by set membership."""
+    rng = np.random.default_rng(seed)
+    origin, res = {}, {}
+    offsets = np.zeros(n_users + 1, dtype=np.int64)
+    gt_items, top_rows, mask_rows = [], [], []
+    for u in range(n_users):
+        gt = rng.choice(n_items, size=int(rng.integers(1, 301)), replace=False)
+        if np.all(np.diff(gt) > 0):
+            gt = gt[::-1]  # insertion order other than sorted wherever it can be
+        origin[f"u{u}"] = {f"i{i}": 1 for i in gt}
+        gt_items.extend(gt)
+        offsets[u + 1] = len(gt_items)
+        outside = np.setdiff1d(np.arange(n_items), gt)
+        n_hits = 0 if all_miss else int(rng.integers(0, min(k, len(gt)) + 1))
+        top = rng.permutation(np.concatenate([rng.choice(gt, n_hits, replace=False),
+                                              rng.choice(outside, k - n_hits, replace=False)]))
+        res[f"u{u}"] = [(f"i{i}", 1.0 - r * 0.001) for r, i in enumerate(top)]
+        top_rows.append(top)
+        gt_set = set(gt.tolist())
+        mask_rows.append([int(i) in gt_set for i in top])
+    return (origin, res, offsets, np.asarray(gt_items), np.asarray(top_rows, dtype=np.int64),
+            np.asarray(mask_rows, dtype=bool))
+
+
+@pytest.mark.parametrize("all_miss", [False, True])
+@pytest.mark.parametrize("k, top_ns", [(1, [1]), (5, [1, 5]), (20, [5, 10, 20]),
+                                       (128, [20, 50, 128])])
+def test_metric_strings_from_the_hit_mask_equal_jax_the_search_and_the_string_path(
+        k, top_ns, all_miss):
+    """``ranking_evaluation_ids`` given the ranking's hit mask builds no key
+    and searches nothing, and still gives the strings of the JAX package's
+    ``ranking_evaluation_ids`` on the same ids, of its own host search and
+    of the string path, over ground truths of 1 to 300 items in an order
+    other than sorted."""
+    origin, res, offsets, items, top, mask = _gt_case(k, 60, 900, k, all_miss)
+    assert mask.any() != all_miss
+    want = jax_metrics.ranking_evaluation_ids(offsets, items, top, top_ns, 900)
+    assert metrics.ranking_evaluation(origin, res, top_ns) == want
+    assert metrics.ranking_evaluation_ids(offsets, items, top, top_ns, 900) == want
+    assert metrics.ranking_evaluation_ids(offsets, items, top, top_ns, 900,
+                                          hit_mask=mask) == want
+
+
+def test_metric_strings_from_the_hit_mask_still_check_their_inputs():
+    """With a hit mask: a user with no ground truth raises
+    ZeroDivisionError, a length mismatch and a mask of another shape raise
+    ValueError."""
+    top = np.zeros((2, 3), np.int64)
+    mask = np.zeros((2, 3), bool)
+    with pytest.raises(ZeroDivisionError):
+        metrics.ranking_evaluation_ids(np.array([0, 2, 2]), np.array([1, 2]), top, [3], 10,
+                                       hit_mask=mask)
+    with pytest.raises(ValueError):
+        metrics.ranking_evaluation_ids(np.array([0, 1, 2, 3]), np.array([0, 1, 2]), top, [3],
+                                       10, hit_mask=mask)
+    with pytest.raises(ValueError):
+        metrics.ranking_evaluation_ids(np.array([0, 1, 2]), np.array([0, 1]), top, [3], 10,
+                                       hit_mask=mask[:, :2])
+
+
 @pytest.mark.parametrize("block_size", [7, 16, 1024])
 def test_eval_plan_arrays_equal_jax(both_data, block_size):
     """Per block: padded uids, the rated rows (padded with row
@@ -341,10 +404,25 @@ def test_sort_keys_round_trip_and_order():
 
 @pytest.mark.parametrize("case", ["wrong_dtype", "int32_rated", "int32_uids", "non_contiguous",
                                   "k_over_max", "k_zero", "k_over_items", "widths_differ",
-                                  "rated_shape"])
+                                  "rated_shape", "gt_int64_items", "gt_int32_offsets",
+                                  "gt_rows", "gt_other_device"])
 def test_rank_topk_wrapper_refuses_what_the_kernel_does_not_take(case):
     ue, ie, rated, uids = _integer_case(seed=4, n_items=200)
     k = 10
+    gt = None
+    if case.startswith("gt_"):
+        offsets, items = _gt_csr(np.random.default_rng(4), uids.shape[0], 200)
+        if case == "gt_int64_items":
+            items = items.long()
+        elif case == "gt_int32_offsets":
+            offsets = offsets.int()
+        elif case == "gt_rows":
+            offsets = offsets[:-1]
+        elif case == "gt_other_device":
+            items = items.to("meta")
+        gt = (offsets, items)
+        with pytest.raises((TypeError, ValueError)):
+            rank_topk.rank_topk_plain(ue, ie, rated, uids, k, gt=gt)
     if case == "wrong_dtype":
         ue = ue.double()
     elif case == "int32_rated":
@@ -364,7 +442,114 @@ def test_rank_topk_wrapper_refuses_what_the_kernel_does_not_take(case):
     elif case == "rated_shape":
         rated = rated[:, :100].contiguous()
     with pytest.raises((TypeError, ValueError)):
-        rank_topk.rank_topk(ue, ie, rated, uids, k)
+        rank_topk.rank_topk(ue, ie, rated, uids, k, gt=gt)
+
+
+def _gt_csr(rng, n, n_items, longest=300, ids=None):
+    """A ground-truth CSR (offsets int64, items int32 ascending in a row)
+    of 0 to ``longest`` items a row; with ``ids`` (n, k), each row also
+    holds a random share of its row of ids."""
+    offsets, items = [0], []
+    for r in range(n):
+        row = rng.choice(n_items, size=int(rng.integers(0, min(longest, n_items) + 1)),
+                         replace=False)
+        if ids is not None:
+            row = np.union1d(row, ids[r][rng.random(ids.shape[1]) < rng.random()])
+        items.extend(np.sort(row))
+        offsets.append(len(items))
+    return (torch.tensor(offsets, dtype=torch.int64),
+            torch.tensor(np.asarray(items, dtype=np.int32), dtype=torch.int32))
+
+
+def _membership(ids, offsets, items):
+    """The hit mask by Python sets: the host's answer."""
+    rows = [set(items[offsets[r]:offsets[r + 1]].tolist()) for r in range(ids.shape[0])]
+    return torch.tensor([[int(i) in rows[r] for i in ids[r]] for r in range(ids.shape[0])],
+                        dtype=torch.bool).reshape(ids.shape)
+
+
+@pytest.mark.parametrize("k", [1, 5, 20, 128, 130])
+def test_rank_topk_plain_hit_mask_is_membership_of_its_own_ids(k):
+    """Given the ground truth (rows of 0 to 300 items, some holding a share
+    of the row's answer, some none of it), the plain twin returns the same
+    scores and ids as without it and a mask equal to the host's membership
+    test of those ids, past the kernels' K_MAX too."""
+    rng = np.random.default_rng(k)
+    ue = torch.from_numpy(rng.normal(size=(120, 8)).astype(np.float32))
+    ie = torch.from_numpy(rng.normal(size=(700, 8)).astype(np.float32))
+    rated = torch.from_numpy((rng.random((120, 700)) < 0.2).astype(np.int8))
+    uids = torch.from_numpy(rng.permutation(120)[:90].astype(np.int64))
+    scs, ids = rank_topk.rank_topk_plain(ue, ie, rated, uids, k, slices=3)
+    gt = _gt_csr(rng, 90, 700, ids=ids.numpy())
+    gscs, gids, hits = rank_topk.rank_topk_plain(ue, ie, rated, uids, k, slices=3, gt=gt)
+    assert torch.equal(gscs, scs) and torch.equal(gids, ids)
+    assert hits.dtype == torch.bool
+    want = _membership(ids, *gt)
+    assert torch.equal(hits, want)
+    assert bool(want.any()) and not bool(want.all(dim=1).all())
+
+
+def test_hits_plain_on_empty_rows_and_an_empty_ground_truth():
+    """Rows with no ground truth hit nothing; so does every row of an empty
+    one."""
+    ids = torch.tensor([[3, 4, 5], [1, 2, 9], [7, 8, 0]])
+    offsets = torch.tensor([0, 0, 3, 3])
+    items = torch.tensor([2, 5, 9], dtype=torch.int32)
+    assert rank_topk.hits_plain(ids, offsets, items).tolist() == [
+        [False] * 3, [False, True, True], [False] * 3]
+    empty = rank_topk.hits_plain(ids, torch.zeros(4, dtype=torch.int64),
+                                 torch.zeros(0, dtype=torch.int32))
+    assert not bool(empty.any())
+
+
+@pytest.mark.parametrize("case", ["cpu_dense", "scatter_mask"])
+def test_topk_ids_fill_the_hit_mask_only_where_the_ranking_tests_its_ids(wide_data,
+                                                                        monkeypatch, case):
+    """The out-parameter changes no id. With the resident mask the call
+    appends a host bool mask equal to the membership of its ids in the
+    test users' ground truth; the scatter mask's route leaves it empty."""
+    _, td = wide_data
+    if case == "scatter_mask":
+        monkeypatch.setenv("SELFREC_TPU_EVAL_MASK", "scatter")
+    ue, ie = (torch.from_numpy(a) for a in _embeddings(td, seed=22))
+    hits = []
+    ids = ranking.topk_ids_from_embeddings(td, ue, ie, 20, block_size=64, hits_out=hits)
+    np.testing.assert_array_equal(
+        ids, ranking.topk_ids_from_embeddings(td, ue, ie, 20, block_size=64))
+    if case == "scatter_mask":
+        assert hits == []
+        return
+    (mask,) = hits
+    assert isinstance(mask, np.ndarray) and mask.dtype == bool and mask.shape == ids.shape
+    offsets, items = td.test_gt_csr()
+    np.testing.assert_array_equal(
+        mask, _membership(torch.from_numpy(ids), offsets, torch.from_numpy(items)).numpy())
+    g_off, g_items = ranking.get_test_gt(td, "cpu")
+    assert g_items.dtype == torch.int32 and torch.equal(g_off, torch.from_numpy(offsets))
+
+
+def test_fast_measure_strings_equal_on_the_host_and_the_device_hit_test(monkeypatch):
+    """``_fast_measure`` on the CPU: the scatter mask's route searches on
+    the host, the resident mask's takes the plain twin's hit mask; the
+    strings are equal and the counters show one eval of each."""
+    from selfrec_tpu_torch.models import get_model_class
+    from selfrec_tpu_torch.utils import trace
+
+    train, test = synth_graph_mapped(300, 1000, 8000, seed=11)
+    conf = dict(CONF, model={"name": "MF", "type": "graph"})
+    model = get_model_class("MF")(ModelConf(conf), train, test, device="cpu")
+    ue, ie = (torch.from_numpy(a) for a in _embeddings(model.data, seed=23))
+    model.user_emb, model.item_emb = ue, ie
+    monkeypatch.setenv("SELFREC_TPU_EVAL_MASK", "scatter")
+    host = model._fast_measure()
+    counts = trace.counts()
+    assert counts.get("eval.hits.host") == 1 and "eval.hits.device" not in counts
+    monkeypatch.delenv("SELFREC_TPU_EVAL_MASK")
+    device = model._fast_measure()
+    counts = trace.counts()
+    assert counts.get("eval.hits.host") == 1 and counts.get("eval.hits.device") == 1
+    assert device == host
+    assert device == metrics.ranking_evaluation(model.data.test_set, model.test(), [10])
 
 
 def test_rank_topk_launches_on_the_card_only():

@@ -625,18 +625,51 @@ def test_rank_topk_kernels_tie_as_the_plain_twin_on_the_card(k, d, share):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["wrong_dtype", "non_contiguous", "k_over_max"])
+@pytest.mark.parametrize("case", ["wrong_dtype", "non_contiguous", "k_over_max",
+                                  "gt_int64_items", "gt_on_the_cpu"])
 def test_rank_topk_wrapper_raises_on_the_card(case):
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(1)
     ue, ie, rated, uids = _rank_case(gen, 300, 700, 64, 0.1)
     k = rank_topk.K_MAX + 1 if case == "k_over_max" else 20
+    gt = None
     if case == "wrong_dtype":
         ue = ue.half()
     elif case == "non_contiguous":
         ie = torch.cat([ie, ie], dim=1)[:, ::2]
+    elif case.startswith("gt_"):
+        offsets = torch.arange(uids.shape[0] + 1, device="cuda")
+        items = torch.zeros(uids.shape[0], dtype=torch.int32, device="cuda")
+        gt = ((offsets, items.long()) if case == "gt_int64_items"
+              else (offsets.cpu(), items.cpu()))
     with pytest.raises((TypeError, ValueError)):
-        rank_topk.rank_topk(ue, ie, rated, uids, k)
+        rank_topk.rank_topk(ue, ie, rated, uids, k, gt=gt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [20, rank_topk.K_MAX])
+def test_rank_merge_hit_mask_equals_the_host_search_on_the_card(k):
+    """At the eval cell's shape, ground truths of 0 to 300 items a test
+    user, each holding a random share of the user's answer (some none):
+    ``rank_merge``'s epilogue gives the host search's mask exactly, at k 20
+    and at K_MAX (four ids a lane), and the scores and ids equal the call
+    without it bit for bit. The ground truth and the host search are
+    chip_smoke.py's."""
+    _needs_card()
+    from chip_smoke import host_hits, synthetic_gt
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    n_items = 38048
+    ue, ie, rated, uids = _rank_case(gen, 31668, n_items, 64, 1561406 / (31668 * n_items))
+    scs, ids = rank_topk.rank_topk(ue, ie, rated, uids, k)
+    gt = synthetic_gt(np.random.default_rng(k), uids.shape[0], n_items, ids.cpu().numpy())
+    gscs, gids, hits = rank_topk.rank_topk(ue, ie, rated, uids, k, gt=gt)
+    torch.cuda.synchronize()
+    assert torch.equal(gids, ids)
+    assert torch.equal(gscs.view(torch.int32), scs.view(torch.int32))
+    want = host_hits(ids.cpu(), *(t.cpu().numpy() for t in gt), n_items)
+    assert np.array_equal(hits.cpu().numpy(), want)
+    assert want.any() and not want.any(axis=1).all()
+    assert torch.equal(hits, rank_topk.hits_plain(ids, *gt))
 
 
 @pytest.mark.cuda
@@ -644,8 +677,10 @@ def test_eval_ranking_takes_the_kernels_on_the_card():
     """``topk_ids_from_embeddings`` on the card with the resident mask: one
     call of the kernels, counted by the host span ``rank.fused``; under a
     profiler the device spans ``rank.score`` and ``rank.topk`` read one
-    pair each. Its ids score like the CPU's (the plain twin)."""
+    pair each. The hit mask it hands back is the host search's; its ids
+    score like the CPU's (the plain twin)."""
     _needs_card()
+    from chip_smoke import host_hits
     from selfrec_tpu_torch.config import ModelConf
     from selfrec_tpu_torch.data.interaction import Interaction
     from selfrec_tpu_torch.ops import ranking
@@ -661,12 +696,14 @@ def test_eval_ranking_takes_the_kernels_on_the_card():
     ue = torch.randn((data.user_num, 64), generator=gen)
     ie = torch.randn((data.item_num, 64), generator=gen)
     trace.reset()
+    hits = []
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]):
-        ids = ranking.topk_ids_from_embeddings(data, ue.cuda(), ie.cuda(), 20)
+        ids = ranking.topk_ids_from_embeddings(data, ue.cuda(), ie.cuda(), 20, hits_out=hits)
     totals = trace.totals()
     assert totals["rank.fused"].count == 1
     assert totals["rank.score"].device_count == 1 and totals["rank.topk"].device_count == 1
+    np.testing.assert_array_equal(hits[0], host_hits(ids, *data.test_gt_csr(), data.item_num))
     cpu = ranking.topk_ids_from_embeddings(data, ue, ie, 20)
     uids = torch.as_tensor(data.test_user_ids).long()
     u64, i64 = ue.double()[uids], ie.double()
@@ -678,8 +715,8 @@ def test_eval_ranking_takes_the_kernels_on_the_card():
 @pytest.mark.cuda
 def test_eval_ranking_on_the_card_past_k_max_takes_the_block_scan(monkeypatch):
     """On the card the resident mask takes the dense-mask block scan past
-    the kernels' K_MAX (up to it, the test above); its answer scores like
-    the CPU's twin's."""
+    the kernels' K_MAX (up to it, the test above), which hands back no hit
+    mask; its answer scores like the CPU's twin's."""
     _needs_card()
     from selfrec_tpu_torch.config import ModelConf
     from selfrec_tpu_torch.data.interaction import Interaction
@@ -706,8 +743,9 @@ def test_eval_ranking_on_the_card_past_k_max_takes_the_block_scan(monkeypatch):
     gen = torch.Generator().manual_seed(6)
     ue = torch.randn((data.user_num, 64), generator=gen)
     ie = torch.randn((data.item_num, 64), generator=gen)
-    ids = ranking.topk_ids_from_embeddings(data, ue.cuda(), ie.cuda(), k)
-    assert taken == ["_topk_all_blocks_dense"]
+    hits = []
+    ids = ranking.topk_ids_from_embeddings(data, ue.cuda(), ie.cuda(), k, hits_out=hits)
+    assert taken == ["_topk_all_blocks_dense"] and hits == []
     cpu = ranking.topk_ids_from_embeddings(data, ue, ie, k)
     uids = torch.as_tensor(data.test_user_ids).long()
     u64, i64 = ue.double()[uids], ie.double()

@@ -240,8 +240,8 @@ def test_each_recommender_starts_a_fresh_record():
 GRAPH_EPOCH = ["runner.batches", "runner.epoch_setup", "runner.buffers", "runner.replays",
                "runner.warmup", "runner.warmup", "runner.drain", "runner.capture",
                "runner.loss_read"]
-GRAPH_EVAL = ["rank.embeddings", "setup.eval_plan", "setup.eval_plan", "rank.blocks",
-              "rank.copy", "metrics.ids", "metrics.record"]
+GRAPH_EVAL = ["rank.embeddings", "setup.eval_plan", "setup.eval_plan", "setup.eval_plan",
+              "rank.blocks", "rank.copy", "metrics.ids", "metrics.record"]
 SEQ_EPOCH = ["runner.batches", "runner.buffers", "runner.replays", "runner.loss_read"]
 SEQ_EVAL = ["rank.copy", "metrics.lists", "metrics.ids", "metrics.record"]
 
@@ -249,8 +249,8 @@ SEQ_EVAL = ["rank.copy", "metrics.lists", "metrics.ids", "metrics.record"]
 def test_graph_epoch_and_eval_record_their_spans_in_order(monkeypatch, tmp_path):
     """SimGCL through a fake graph (so that the warm-up, drain and capture
     run as on the card) then its eval: the runner's spans in the order the
-    epoch runs them, then the ranking's and the metrics'. The plan and the
-    mask are built in the first eval only."""
+    epoch runs them, then the ranking's and the metrics'. The plan, the
+    mask and the device ground truth are built in the first eval only."""
     model = _simgcl()
     monkeypatch.setattr(model, "step_graph_eager_reason", lambda: None)
     monkeypatch.setattr(model, "graph_class", FakeGraph)
