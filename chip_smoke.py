@@ -248,10 +248,8 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-INT8_OPS_PER_S = 1.979e15   # H100 SXM data sheet, dense int8 tensor rate
-F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 tensor rate
+from benchmark.core.peaks import HBM_BYTES_PER_S, PEAK
+
 K1_FLOAT_RTOL, K1_FLOAT_ATOL = 1e-5, 1e-3  # the JAX package's (tests/test_dense_dual.py)
 N_TRAIN_BATCHES = 50
 RANK_LAUNCHES = {}  # eval path tag: calls of the ranking kernels in its eval
@@ -381,7 +379,7 @@ def k1_case(tag, b, bt, d, gen):
                                   torch._int_mm(bt_pad, xu_pad)), reps=10)
     del b_pad, bt_pad, lib_u, lib_i
     bms, bound_by = bound_ms(u * i + (u + i) * d + 4 * (u + i) * d, 4.0 * u * i * d,
-                             INT8_OPS_PER_S)
+                             PEAK["int8"])
     k_ms = (kernel_only_ms(lambda: dense_dual.dual_matmul(b, xu, xi, bt), "dual_s8_kernel")
             if tag in ("yelp", "douban SEPT") else None)
     row = {"shape": [u, i, d], "tag": tag, "match": "exact", "max_abs_err": err,
@@ -469,7 +467,7 @@ def k1_float_case(tag, b, bt, d, dtype, gen, grad=False):
     esz = xu.element_size()
     pieces = 1 if dtype == torch.bfloat16 else 3
     bms, bound_by = bound_ms(u * i + esz * (u + i) * d + 4 * (u + i) * d,
-                             pieces * 4.0 * u * i * d, BF16_OPS_PER_S)
+                             pieces * 4.0 * u * i * d, PEAK["bfloat16"])
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
     k_ms = (kernel_only_ms(lambda: dense_dual.dual_matmul(b, xu, xi, bt), "dual_float_kernel")
             if tag == "yelp" else None)
@@ -554,7 +552,7 @@ def k2_case(tag, layout, w, x, exact=False):
     del mats, lib
     nbytes = (layout.vidx.numel() * 4 + w.numel() * 4 + x.numel() * x.element_size()
               + layout.row_ptr.numel() * 4 + out.numel() * 4)
-    bms, bound_by = bound_ms(nbytes, 2.0 * v * k * c, F32_OPS_PER_S)
+    bms, bound_by = bound_ms(nbytes, 2.0 * v * k * c, PEAK["float32"])
     gathered = v * k * c * x.element_size()
     dt = "bf16" if x.dtype == torch.bfloat16 else "f32"
     row = {"shape": {"V": v, "K": k, "P": p, "D": d, "n_rows": layout.n_rows,
@@ -1134,9 +1132,8 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
     embeddings of BUIR, SelfCF and SSL4Rec)."""
     import torch
 
-    from selfrec_tpu_torch.utils import metrics, trace
-
     from selfrec_tpu_torch.ops import rank_topk
+    from selfrec_tpu_torch.utils import metrics
 
     counters = counter if isinstance(counter, tuple) else (counter,)
     expect = model.n_layers if expect is None else expect
@@ -1144,7 +1141,6 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
     for c in counters:
         c.launches = 0
     ranked = rank_topk.rank_topk.launches
-    tested = trace.counts().get("eval.hits.device", 0)
     t0 = time.time()
     model.user_emb, model.item_emb = model.embeddings()
     measure = model.fast_evaluation(0)
@@ -1152,11 +1148,7 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
     eval_ms = 1e3 * (time.time() - t0)
     launches = sum(c.launches for c in counters)
     RANK_LAUNCHES[tag] = rank_topk.rank_topk.launches - ranked
-    tested = trace.counts().get("eval.hits.device", 0) - tested
-    if tested != RANK_LAUNCHES[tag]:
-        raise RuntimeError(f"{tag} eval: {tested} evals took the card's hit test, "
-                           f"{RANK_LAUNCHES[tag]} the ranking kernels")
-    if tested:
+    if RANK_LAUNCHES[tag]:
         hit_gate(tag, model)
     ue, ie = model.user_emb, model.item_emb
     if (tuple(ue.shape) != (model.data.user_num, width)
@@ -1180,9 +1172,9 @@ def eval_path(tag, model, counter, profile=False, expect=None, width=64):
 
 
 def host_hits(ids, offsets, items, n_items):
-    """The host's hit test (``metrics.ranking_evaluation_ids`` without a
-    mask): each (row, id) key searched among the sorted ground-truth keys
-    of the CSR ``offsets``, ``items`` (any order within a row)."""
+    """The hit test on the host, independent of the port's: each (row, id)
+    key searched among the sorted ground-truth keys of the CSR
+    ``offsets``, ``items`` (any order within a row)."""
     import numpy as np
 
     offsets, items = np.asarray(offsets, np.int64), np.asarray(items, np.int64)
@@ -1196,9 +1188,11 @@ def host_hits(ids, offsets, items, n_items):
 
 
 def hit_gate(tag, model):
-    """The eval's hit mask from the card (``rank_merge``'s epilogue, as
-    ``_fast_measure`` takes it) on the model's embeddings equals the host
-    search of the same ids, and the metric strings from each are equal."""
+    """The eval's hit mask from the card (as ``_fast_measure`` takes it:
+    ``rank_merge``'s epilogue on the kernels' route, ``hits_plain`` on the
+    others) on the model's embeddings equals the host search of the same
+    ids, and the metric strings from it equal the string path's over
+    ``model.test()``."""
     from selfrec_tpu_torch.ops import ranking
     from selfrec_tpu_torch.utils import metrics
 
@@ -1208,10 +1202,11 @@ def hit_gate(tag, model):
     offsets, items = data.test_gt_csr()
     if len(hits) != 1 or not (hits[0] == host_hits(ids, offsets, items, data.item_num)).all():
         raise RuntimeError(f"{tag} eval: the card's hit mask differs from the host search")
-    args = (offsets, items, ids, [model.max_N], data.item_num)
-    if metrics.ranking_evaluation_ids(*args, hit_mask=hits[0]) != metrics.ranking_evaluation_ids(
-            *args):
-        raise RuntimeError(f"{tag} eval: the metrics differ between the two hit tests")
+    top_ns = [model.max_N]
+    if metrics.ranking_evaluation_ids(offsets, items, ids, top_ns, hits[0]) != \
+            metrics.ranking_evaluation(data.test_set, model.test(), top_ns):
+        raise RuntimeError(f"{tag} eval: the metrics from the hit mask differ from the "
+                           f"string path's")
     log(f"[eval {tag}] hit test on the card equals the host search "
         f"({int(hits[0].sum())} hits in {hits[0].size} ids)")
 
@@ -1342,7 +1337,7 @@ def rank_case(model, k=20):
                                                                 k), reps=10)
     tiles_per_slice, slices = rank_topk.slice_plan(n, n_items, ue.device)
     bms, bound_by = bound_ms(4 * (n + n_items) * d + 12 * n * k, 2.0 * n * n_items * d,
-                             F32_OPS_PER_S)
+                             PEAK["float32"])
     row = {"shape": [n, n_items, d, k], "tag": "yelp eval", "slices": slices,
            "tiles_per_slice": tiles_per_slice, "match": "rescored rtol 1e-5",
            "max_abs_err": err, "ids_differ": id_off, "ms": ms, "ms_back_to_back": ms_b2b,
@@ -1876,7 +1871,7 @@ def densemat_gemm_ms(model, step_ms):
                      "fwd_device_ms": kernel_only_ms(fwd, ""),
                      "fwd_bwd_device_ms": kernel_only_ms(both, ""),
                      "fwd_bound_ms": bound_ms(2 * m * k + 4 * k * d + 4 * m * d,
-                                              2.0 * m * k * d, BF16_OPS_PER_S)[0]}
+                                              2.0 * m * k * d, PEAK["bfloat16"])[0]}
     per_step = sum(r["calls_per_step"] * (r["fwd_bwd_device_ms"] or float("nan"))
                    for r in rows.values())
     log(f"[densemat MHCN] {model.H[0]!r}: cuBLAS bf16 GEMM with f32 output "
@@ -3248,6 +3243,7 @@ def main():
     with knobs(SELFREC_TPU_EVAL_MASK="scatter"):
         k1_paths["simgcl_scatter_eval"] = eval_path("SimGCL int8x8 scatter mask", model,
                                                     dense_dual.dual_matmul, profile=True)
+        hit_gate("SimGCL int8x8 scatter mask", model)
     scatter_eval_gate("SimGCL int8x8", model)
     free(model)
     del model

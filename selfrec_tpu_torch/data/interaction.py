@@ -102,21 +102,6 @@ class Interaction:
                 offsets, np.asarray(items, dtype=np.int32))
         return cached
 
-    def test_gt_sorted_keys(self) -> np.ndarray:
-        """Sorted ``row * item_num + item`` ground-truth keys for the
-        id-based eval hit test (utils/metrics.ranking_evaluation_ids) —
-        immutable across epochs, so sorted ONCE instead of np.isin
-        re-sorting them inside every fast_evaluation."""
-        cached = getattr(self, "_test_gt_sorted_keys", None)
-        if cached is None:
-            offsets, items = self.test_gt_csr()
-            rows = np.repeat(
-                np.arange(len(offsets) - 1, dtype=np.int64),
-                np.diff(offsets))
-            cached = self._test_gt_sorted_keys = np.sort(
-                rows * self.item_num + items)
-        return cached
-
     # -- construction -------------------------------------------------------
     def _generate_set(self) -> None:
         self._training_set_u = defaultdict(dict)

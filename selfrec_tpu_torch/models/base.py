@@ -255,10 +255,10 @@ class GraphRecommender(_FastEvalMixin, Recommender):
 
     def _fast_measure(self):
         """Id-array eval: device top-k -> vectorized metrics over int ids,
-        exact-equal to the string path (base.py:226-244). Where the ranking
-        tests its own ids against the ground truth (the resident mask), the
-        metrics take its hit mask; elsewhere they search on the host. The
-        sharded top-k keeps the rec-list route, as in the JAX package."""
+        exact-equal to the string path (base.py:226-244). The ranking tests
+        its own ids against the ground truth and the metrics read its hit
+        mask. The sharded top-k keeps the rec-list route, as in the JAX
+        package."""
         if self._sharded_topk_impl() is not None:
             return super()._fast_measure()
         user_emb, item_emb = self.current_embeddings()
@@ -269,10 +269,7 @@ class GraphRecommender(_FastEvalMixin, Recommender):
             self.data, user_emb, item_emb, self.max_N,
             block_size=self.eval_block_size, hits_out=hits)
         offsets, items = self.data.test_gt_csr()
-        return metrics.ranking_evaluation_ids(
-            offsets, items, top_ids, [self.max_N], self.data.item_num,
-            sorted_test_keys=self.data.test_gt_sorted_keys(),
-            hit_mask=hits[0] if hits else None)
+        return metrics.ranking_evaluation_ids(offsets, items, top_ids, [self.max_N], hits[0])
 
     def evaluate(self, rec_list):
         self.rec_output.append(

@@ -19,8 +19,8 @@ A pair is ranked by one int64 key (:func:`sort_keys`), so every order is
 total and the answer does not depend on the slices. Given the test users'
 ground truth (``gt``: a CSR, items ascending within each user), the merge
 also tests its answer: ``hits[r, q]`` is true exactly where ``ids[r, q]``
-is a ground-truth item of test user r, so the eval's metrics need no
-search on the host (:func:`hits_plain` is the test in plain torch).
+is a ground-truth item of test user r. :func:`hits_plain` is the same
+test in plain torch, which the eval's other routes run on their ids.
 
 The eval's CPU path takes :func:`rank_topk_plain`, at any k. For CUDA
 tensors :func:`rank_topk` launches the two hand-written kernels of

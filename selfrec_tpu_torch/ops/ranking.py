@@ -21,9 +21,11 @@ no block loop on the CPU, nor on the card for k <= ``rank_topk.K_MAX``:
 :mod:`selfrec_tpu_torch.ops.rank_topk` ranks every test user at once, by
 two hand-written kernels on the card (scores, mask and each user's top-k
 in one pass, the score matrix never written) and by their plain twin
-``rank_topk_plain`` on the CPU. On that route the ranking also tests each
-returned id against the test user's ground truth (:func:`get_test_gt`),
-which :func:`topk_ids_from_embeddings` hands its caller as a host mask.
+``rank_topk_plain`` on the CPU. Every route can also test each returned
+id against the test user's ground truth (:func:`get_test_gt`): the
+kernels' route in ``rank_merge``'s epilogue, the others by
+``rank_topk.hits_plain`` on the ids where they lie.
+:func:`topk_ids_from_embeddings` hands that mask its caller on the host.
 
 Two top-k orders: score-function ranking (:func:`rec_list_from_score_fn`,
 :func:`topk_scores`, :func:`topk_scores_masked`,
@@ -37,12 +39,12 @@ practice.
 
 Spans (:mod:`selfrec_tpu_torch.utils.trace`): ``setup.eval_plan`` where
 the plan, the resident mask or the device ground truth is built; around
-the ranking ``rank.blocks`` (enqueueing the work) and ``rank.copy`` (the
-ids, and the hit mask where there is one, to the host); in the
+the ranking ``rank.blocks`` (enqueueing the work) and ``rank.copy`` (what
+the caller reads, to the host); in the
 block scans each block's ``rank.score`` (scores and mask) and
 ``rank.topk`` as device spans, and in ``rank_topk`` its own (``rank.fused``
 a call on the card, ``rank.score`` its scoring pass, ``rank.topk`` its
-merge). Counter ``eval.hits.device``: a ranking that tested its own ids.
+merge).
 """
 
 from __future__ import annotations
@@ -365,35 +367,30 @@ def _ranked(data, user_emb, item_emb, k: int, block_size: int, test_hits: bool =
     take :func:`rank_topk.rank_topk_plain` at any k; CUDA tensors take the
     kernels (:func:`rank_topk.rank_topk`) for k up to ``rank_topk.K_MAX``
     and the dense-mask block scan past it. Returns (plan, scores, ids,
-    hits) on the host; with ``test_hits`` the plain twin and the kernels
-    also test each id against :func:`get_test_gt`, and ``hits`` is their
-    (n, k) bool mask, counted as ``eval.hits.device``; None on the other
-    routes and without ``test_hits``."""
+    hits) on ``user_emb``'s device, (n, k) in test-user order; with
+    ``test_hits`` every route tests its ids against :func:`get_test_gt`
+    and ``hits`` is the (n, k) bool mask (``rank_merge``'s epilogue on the
+    kernels' route, :func:`rank_topk.hits_plain` on the others), else
+    None."""
     eval_topk_recall()
     device = user_emb.device
     plan = get_eval_plan(data, block_size, device)
     rated = get_rated_dense(data, device)
-    # the routes of the plain twin and the kernels, which can test their ids
-    twin = rated is not None and (device.type == "cpu" or k <= rank_topk.K_MAX)
-    gt = get_test_gt(data, device) if twin and test_hits else None
-    hits = None
+    gt = get_test_gt(data, device) if test_hits else None
+    n = len(plan.user_ids)
     with trace.span("rank.blocks"):
         ue, ie = user_emb.float().contiguous(), item_emb.float().contiguous()
-        rank = rank_topk.rank_topk_plain if device.type == "cpu" else rank_topk.rank_topk
         if rated is None:
-            scs, idss = _topk_all_blocks(ue, ie, plan, k)
-        elif not twin:
-            scs, idss = _topk_all_blocks_dense(ue, ie, plan.uids_all, rated, k)
-        elif gt is None:
-            scs, idss = rank(ue, ie, rated, plan.uids, k)
+            scs, ids = _topk_all_blocks(ue, ie, plan, k)
+        elif device.type == "cpu":
+            scs, ids = rank_topk.rank_topk_plain(ue, ie, rated, plan.uids, k)
+        elif k > rank_topk.K_MAX:
+            scs, ids = _topk_all_blocks_dense(ue, ie, plan.uids_all, rated, k)
         else:
-            scs, idss, hits = rank(ue, ie, rated, plan.uids, k, gt=gt)
-            trace.count("eval.hits.device")
-    n = len(plan.user_ids)
-    with trace.span("rank.copy"):
-        return (plan, scs.reshape(-1, k)[:n].cpu().numpy(),
-                idss.reshape(-1, k)[:n].cpu().numpy(),
-                None if hits is None else hits.cpu().numpy())
+            out = rank_topk.rank_topk(ue, ie, rated, plan.uids, k, gt=gt)
+            return (plan, *out) if gt is not None else (plan, *out, None)
+        scs, ids = scs.reshape(-1, k)[:n], ids.reshape(-1, k)[:n]
+        return plan, scs, ids, None if gt is None else rank_topk.hits_plain(ids, *gt)
 
 
 def topk_ids_from_embeddings(data, user_emb, item_emb, k: int,
@@ -401,15 +398,15 @@ def topk_ids_from_embeddings(data, user_emb, item_emb, k: int,
                              hits_out: Optional[list] = None) -> np.ndarray:
     """(n_test_users, k) top item ids (internal), rows in test-user order —
     the raw-array path of per-epoch fast_evaluation (ranking.py:321-333).
-    ``hits_out``, a list the caller owns: where the ranking tests its own
-    answer (the resident mask, on the CPU or on the card up to
-    ``rank_topk.K_MAX``), the (n_test_users, k) bool host mask is appended
-    to it, true where the id is one of the test user's ground-truth items
-    (``data.test_gt_csr``); on the other routes it is left as it is."""
+    ``hits_out``, a list the caller owns: the (n_test_users, k) bool host
+    mask is appended to it, true where the id is one of the test user's
+    ground-truth items (``data.test_gt_csr``), as the ranking tested it."""
     _, _, ids, hits = _ranked(data, user_emb, item_emb, k, block_size,
                               test_hits=hits_out is not None)
-    if hits is not None:
-        hits_out.append(hits)
+    with trace.span("rank.copy"):
+        ids = ids.cpu().numpy()
+        if hits_out is not None:
+            hits_out.append(hits.cpu().numpy())
     return ids
 
 
@@ -423,6 +420,8 @@ def rec_list_from_embeddings(data, user_emb, item_emb, k: int,
     place of the all-blocks scan."""
     if topk_impl is None:
         plan, scores, ids, _ = _ranked(data, user_emb, item_emb, k, block_size)
+        with trace.span("rank.copy"):
+            scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
         return assemble_rec_list(data, plan.user_ids, ids, scores)
     with torch.no_grad():
         plan = get_eval_plan(data, block_size, user_emb.device)

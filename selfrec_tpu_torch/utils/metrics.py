@@ -11,9 +11,7 @@ Parity notes (each quirk reproduced deliberately — see SURVEY.md §2 #24):
   reference writes to its performance files (util/evaluation.py:135-162).
 
 Both ranking evaluations are the ``metrics.ids`` span
-(:mod:`selfrec_tpu_torch.utils.trace`). ``ranking_evaluation_ids`` counts
-``eval.hits.host`` when it searches the ground truth itself (the ranking
-counts ``eval.hits.device`` where it made the hit mask).
+(:mod:`selfrec_tpu_torch.utils.trace`).
 """
 
 from __future__ import annotations
@@ -111,8 +109,7 @@ def ranking_evaluation(origin: Origin, res: RecList, top_ns: Sequence[int]) -> L
 
 @trace.span("metrics.ids")
 def ranking_evaluation_ids(
-    test_offsets, test_items, top_ids, top_ns: Sequence[int], n_items: int,
-    sorted_test_keys=None, hit_mask=None,
+    test_offsets, test_items, top_ids, top_ns: Sequence[int], hit_mask,
 ) -> List[str]:
     """Vectorized ``ranking_evaluation`` over internal integer ids.
 
@@ -122,17 +119,15 @@ def ranking_evaluation_ids(
     costs ~0.9s of host time per eval at 30k+ test users. Inputs:
     ``test_offsets``/``test_items`` — CSR of each test user's ground-truth
     item ids in INSERTION order, rows in the same user order as
-    ``top_ids`` (n_users, K); ``n_items`` — catalog size (for key hashing).
+    ``top_ids`` (n_users, K), of which the metrics read the counts;
     ``hit_mask`` — (n_users, K) bool, true where ``top_ids`` holds a
     ground-truth item of its row, as the ranking tested it
-    (``ranking.topk_ids_from_embeddings``'s ``hits_out``): then no key is
-    built and nothing searched. Equal strings to the JAX package's and the
-    string path's: tests/test_torch_eval.py.
+    (``ranking.topk_ids_from_embeddings``'s ``hits_out``). Equal strings
+    to the JAX package's and the string path's: tests/test_torch_eval.py.
     """
     import numpy as np
 
     test_offsets = np.asarray(test_offsets, dtype=np.int64)
-    test_items = np.asarray(test_items, dtype=np.int64)
     top_ids = np.asarray(top_ids, dtype=np.int64)
     n_users, K = top_ids.shape
     if n_users != len(test_offsets) - 1:
@@ -149,30 +144,10 @@ def ranking_evaluation_ids(
         raise ZeroDivisionError(
             "test user with zero ground-truth items in ranking_evaluation_ids")
     total_num = int(len_u.sum())
-
-    if hit_mask is not None:
-        hit_mask = np.asarray(hit_mask, dtype=bool)
-        if hit_mask.shape != top_ids.shape:
-            raise ValueError(f"hit mask {hit_mask.shape} is not the shape of the top "
-                             f"ids {top_ids.shape}")
-    else:
-        trace.count("eval.hits.host")
-        if sorted_test_keys is None:
-            # callers that eval per-epoch should precompute this once: np.isin
-            # re-sorts the (row*n_items + item) ground-truth keys every call
-            # (see Interaction.test_gt_sorted_keys)
-            row_of_test = np.repeat(np.arange(n_users, dtype=np.int64), len_u)
-            sorted_test_keys = np.sort(row_of_test * n_items + test_items)
-        top_keys = np.arange(n_users, dtype=np.int64)[:, None] * n_items + top_ids
-        if len(sorted_test_keys) == 0:
-            # empty ground truth: all misses (the -1 clamp below would
-            # otherwise index an empty array — advisor round-3 finding)
-            hit_mask = np.zeros((n_users, K), dtype=bool)
-        else:
-            pos = np.searchsorted(sorted_test_keys, top_keys.ravel())
-            pos = np.minimum(pos, len(sorted_test_keys) - 1)
-            hit_mask = (sorted_test_keys[pos] == top_keys.ravel()
-                        ).reshape(n_users, K)
+    hit_mask = np.asarray(hit_mask, dtype=bool)
+    if hit_mask.shape != top_ids.shape:
+        raise ValueError(f"hit mask {hit_mask.shape} is not the shape of the top "
+                         f"ids {top_ids.shape}")
 
     w = 1.0 / np.log2(np.arange(K, dtype=np.float64) + 2.0)
     cum_w = np.concatenate([[0.0], np.cumsum(w)])

@@ -12,9 +12,7 @@ of the eval, and the device time of the eval's ranking phases.
   outside a stream capture; the pairs are resolved only when read, after
   the caller's synchronise. Anywhere else it does nothing.
 - :func:`count` adds one to a named counter of what set-up built (the
-  adjacency's layout, the negatives' sampler) or of the route an eval took
-  (``eval.hits.device``, ``eval.hits.host``: where its hit test ran);
-  :func:`counts` reads them.
+  adjacency's layout, the negatives' sampler); :func:`counts` reads them.
 - :func:`reset` starts a fresh record (every recommender's constructor
   calls it, so a run reads only its own spans); :func:`totals` reads it.
 
@@ -119,7 +117,7 @@ def _device_span(name: str, device: torch.device):
 
 def count(name: str) -> None:
     """One more of ``name`` in the record's counters (``layout.EllAdj``,
-    ``sampler.csr``, ``eval.hits.device``): no time, no range."""
+    ``sampler.csr``): no time, no range."""
     _record.counts[name] += 1
 
 

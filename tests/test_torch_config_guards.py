@@ -121,10 +121,10 @@ def eval_case(tiny_graph_dataset):
 
 
 def _measure(data, ue, ie):
-    top = ranking.topk_ids_from_embeddings(data, ue, ie, 10)
+    hits = []
+    top = ranking.topk_ids_from_embeddings(data, ue, ie, 10, hits_out=hits)
     offsets, items = data.test_gt_csr()
-    return metrics.ranking_evaluation_ids(offsets, items, top, [10], data.item_num,
-                                          sorted_test_keys=data.test_gt_sorted_keys())
+    return metrics.ranking_evaluation_ids(offsets, items, top, [10], hits[0])
 
 
 def _jax_ids(tiny_graph_dataset, ue, ie):
@@ -160,7 +160,7 @@ def test_eval_topk_exact_ranks(eval_case, monkeypatch):
     assert _measure(*eval_case) == exact
 
 
-def test_eval_mask_scatter_raises(eval_case, tiny_graph_dataset, monkeypatch):
+def test_eval_mask_scatter_ranks_through_the_plan(eval_case, tiny_graph_dataset, monkeypatch):
     """``SELFREC_TPU_EVAL_MASK=scatter`` ranks through the scatter-mask
     plan, as the JAX package does (ranking.py:53-55), with no (U, I) mask
     built, and equals the resident mask's ranking."""
@@ -174,7 +174,7 @@ def test_eval_mask_scatter_raises(eval_case, tiny_graph_dataset, monkeypatch):
                                   _jax_ids(tiny_graph_dataset, ue, ie))
 
 
-def test_eval_mask_auto_over_budget_raises(eval_case, tiny_graph_dataset, monkeypatch):
+def test_eval_mask_auto_over_budget_ranks_through_the_plan(eval_case, tiny_graph_dataset, monkeypatch):
     """``auto`` with the mask over ``SELFREC_TPU_DENSE_BUDGET_GB`` builds no
     mask and ranks through the scatter-mask plan (ranking.py:62-65), as the
     JAX package does."""

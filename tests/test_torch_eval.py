@@ -89,12 +89,11 @@ def test_rec_list_equal_jax(both_data):
 def test_metric_strings_equal_jax_and_the_string_path(both_data):
     jd, td = both_data
     ue, ie = _embeddings(td, seed=5)
+    hits = []
     top = ranking.topk_ids_from_embeddings(td, torch.from_numpy(ue),
-                                           torch.from_numpy(ie), 20)
+                                           torch.from_numpy(ie), 20, hits_out=hits)
     offsets, items = td.test_gt_csr()
-    got = metrics.ranking_evaluation_ids(offsets, items, top, [5, 10, 20],
-                                         td.item_num,
-                                         sorted_test_keys=td.test_gt_sorted_keys())
+    got = metrics.ranking_evaluation_ids(offsets, items, top, [5, 10, 20], hits[0])
     ref = jax_metrics.ranking_evaluation_ids(offsets, items, top, [5, 10, 20],
                                              td.item_num)
     assert got == ref
@@ -134,37 +133,32 @@ def _gt_case(seed, n_users, n_items, k, all_miss):
 @pytest.mark.parametrize("all_miss", [False, True])
 @pytest.mark.parametrize("k, top_ns", [(1, [1]), (5, [1, 5]), (20, [5, 10, 20]),
                                        (128, [20, 50, 128])])
-def test_metric_strings_from_the_hit_mask_equal_jax_the_search_and_the_string_path(
+def test_metric_strings_from_the_hit_mask_equal_jax_and_the_string_path(
         k, top_ns, all_miss):
-    """``ranking_evaluation_ids`` given the ranking's hit mask builds no key
-    and searches nothing, and still gives the strings of the JAX package's
-    ``ranking_evaluation_ids`` on the same ids, of its own host search and
-    of the string path, over ground truths of 1 to 300 items in an order
-    other than sorted."""
+    """``ranking_evaluation_ids`` from the hit mask alone gives the strings
+    of the JAX package's ``ranking_evaluation_ids`` on the same ids, which
+    searches the ground truth itself, and of the string path, over ground
+    truths of 1 to 300 items in an order other than sorted."""
     origin, res, offsets, items, top, mask = _gt_case(k, 60, 900, k, all_miss)
     assert mask.any() != all_miss
     want = jax_metrics.ranking_evaluation_ids(offsets, items, top, top_ns, 900)
     assert metrics.ranking_evaluation(origin, res, top_ns) == want
-    assert metrics.ranking_evaluation_ids(offsets, items, top, top_ns, 900) == want
-    assert metrics.ranking_evaluation_ids(offsets, items, top, top_ns, 900,
-                                          hit_mask=mask) == want
+    assert metrics.ranking_evaluation_ids(offsets, items, top, top_ns, mask) == want
 
 
 def test_metric_strings_from_the_hit_mask_still_check_their_inputs():
-    """With a hit mask: a user with no ground truth raises
-    ZeroDivisionError, a length mismatch and a mask of another shape raise
-    ValueError."""
+    """A user with no ground truth raises ZeroDivisionError, a length
+    mismatch and a mask of another shape raise ValueError."""
     top = np.zeros((2, 3), np.int64)
     mask = np.zeros((2, 3), bool)
     with pytest.raises(ZeroDivisionError):
-        metrics.ranking_evaluation_ids(np.array([0, 2, 2]), np.array([1, 2]), top, [3], 10,
-                                       hit_mask=mask)
+        metrics.ranking_evaluation_ids(np.array([0, 2, 2]), np.array([1, 2]), top, [3], mask)
     with pytest.raises(ValueError):
         metrics.ranking_evaluation_ids(np.array([0, 1, 2, 3]), np.array([0, 1, 2]), top, [3],
-                                       10, hit_mask=mask)
+                                       mask)
     with pytest.raises(ValueError):
-        metrics.ranking_evaluation_ids(np.array([0, 1, 2]), np.array([0, 1]), top, [3], 10,
-                                       hit_mask=mask[:, :2])
+        metrics.ranking_evaluation_ids(np.array([0, 1, 2]), np.array([0, 1]), top, [3],
+                                       mask[:, :2])
 
 
 @pytest.mark.parametrize("block_size", [7, 16, 1024])
@@ -502,38 +496,37 @@ def test_hits_plain_on_empty_rows_and_an_empty_ground_truth():
     assert not bool(empty.any())
 
 
-@pytest.mark.parametrize("case", ["cpu_dense", "scatter_mask"])
-def test_topk_ids_fill_the_hit_mask_only_where_the_ranking_tests_its_ids(wide_data,
-                                                                        monkeypatch, case):
-    """The out-parameter changes no id. With the resident mask the call
-    appends a host bool mask equal to the membership of its ids in the
-    test users' ground truth; the scatter mask's route leaves it empty."""
+@pytest.mark.parametrize("case", ["cpu_dense", "scatter_mask", "k_over_max"])
+def test_topk_ids_fill_the_hit_mask_on_every_route(wide_data, monkeypatch, case):
+    """The out-parameter changes no id. On each route (the plain twin, the
+    scatter scan, the plain twin past the kernels' K_MAX) the call appends
+    one host bool mask equal to the membership of its ids in the test
+    users' ground truth."""
     _, td = wide_data
+    k = rank_topk.K_MAX + 2 if case == "k_over_max" else 20
     if case == "scatter_mask":
         monkeypatch.setenv("SELFREC_TPU_EVAL_MASK", "scatter")
     ue, ie = (torch.from_numpy(a) for a in _embeddings(td, seed=22))
     hits = []
-    ids = ranking.topk_ids_from_embeddings(td, ue, ie, 20, block_size=64, hits_out=hits)
+    ids = ranking.topk_ids_from_embeddings(td, ue, ie, k, block_size=64, hits_out=hits)
     np.testing.assert_array_equal(
-        ids, ranking.topk_ids_from_embeddings(td, ue, ie, 20, block_size=64))
-    if case == "scatter_mask":
-        assert hits == []
-        return
+        ids, ranking.topk_ids_from_embeddings(td, ue, ie, k, block_size=64))
     (mask,) = hits
     assert isinstance(mask, np.ndarray) and mask.dtype == bool and mask.shape == ids.shape
     offsets, items = td.test_gt_csr()
-    np.testing.assert_array_equal(
-        mask, _membership(torch.from_numpy(ids), offsets, torch.from_numpy(items)).numpy())
+    want = _membership(torch.from_numpy(ids), offsets, torch.from_numpy(items)).numpy()
+    np.testing.assert_array_equal(mask, want)
+    assert want.any()
     g_off, g_items = ranking.get_test_gt(td, "cpu")
     assert g_items.dtype == torch.int32 and torch.equal(g_off, torch.from_numpy(offsets))
 
 
 def test_fast_measure_strings_equal_on_the_host_and_the_device_hit_test(monkeypatch):
-    """``_fast_measure`` on the CPU: the scatter mask's route searches on
-    the host, the resident mask's takes the plain twin's hit mask; the
-    strings are equal and the counters show one eval of each."""
+    """``_fast_measure`` on the CPU: the scatter mask's route and the
+    resident mask's each test their own ids; the strings are equal to each
+    other, to the string path's and to the JAX package's
+    ``ranking_evaluation_ids`` on the same ids."""
     from selfrec_tpu_torch.models import get_model_class
-    from selfrec_tpu_torch.utils import trace
 
     train, test = synth_graph_mapped(300, 1000, 8000, seed=11)
     conf = dict(CONF, model={"name": "MF", "type": "graph"})
@@ -541,15 +534,15 @@ def test_fast_measure_strings_equal_on_the_host_and_the_device_hit_test(monkeypa
     ue, ie = (torch.from_numpy(a) for a in _embeddings(model.data, seed=23))
     model.user_emb, model.item_emb = ue, ie
     monkeypatch.setenv("SELFREC_TPU_EVAL_MASK", "scatter")
-    host = model._fast_measure()
-    counts = trace.counts()
-    assert counts.get("eval.hits.host") == 1 and "eval.hits.device" not in counts
+    scatter = model._fast_measure()
     monkeypatch.delenv("SELFREC_TPU_EVAL_MASK")
-    device = model._fast_measure()
-    counts = trace.counts()
-    assert counts.get("eval.hits.host") == 1 and counts.get("eval.hits.device") == 1
-    assert device == host
-    assert device == metrics.ranking_evaluation(model.data.test_set, model.test(), [10])
+    resident = model._fast_measure()
+    assert resident == scatter
+    assert resident == metrics.ranking_evaluation(model.data.test_set, model.test(), [10])
+    ids = ranking.topk_ids_from_embeddings(model.data, ue, ie, 10,
+                                           block_size=model.eval_block_size)
+    assert resident == jax_metrics.ranking_evaluation_ids(*model.data.test_gt_csr(), ids, [10],
+                                                          model.data.item_num)
 
 
 def test_rank_topk_launches_on_the_card_only():

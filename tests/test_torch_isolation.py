@@ -715,9 +715,11 @@ def test_eval_ranking_takes_the_kernels_on_the_card():
 @pytest.mark.cuda
 def test_eval_ranking_on_the_card_past_k_max_takes_the_block_scan(monkeypatch):
     """On the card the resident mask takes the dense-mask block scan past
-    the kernels' K_MAX (up to it, the test above), which hands back no hit
-    mask; its answer scores like the CPU's twin's."""
+    the kernels' K_MAX (up to it, the test above), whose ids ``hits_plain``
+    tests on the card: the one mask it hands back is the host search's. Its
+    answer scores like the CPU's twin's."""
     _needs_card()
+    from chip_smoke import host_hits
     from selfrec_tpu_torch.config import ModelConf
     from selfrec_tpu_torch.data.interaction import Interaction
     from selfrec_tpu_torch.ops import ranking
@@ -745,7 +747,8 @@ def test_eval_ranking_on_the_card_past_k_max_takes_the_block_scan(monkeypatch):
     ie = torch.randn((data.item_num, 64), generator=gen)
     hits = []
     ids = ranking.topk_ids_from_embeddings(data, ue.cuda(), ie.cuda(), k, hits_out=hits)
-    assert taken == ["_topk_all_blocks_dense"] and hits == []
+    assert taken == ["_topk_all_blocks_dense"] and len(hits) == 1
+    np.testing.assert_array_equal(hits[0], host_hits(ids, *data.test_gt_csr(), data.item_num))
     cpu = ranking.topk_ids_from_embeddings(data, ue, ie, k)
     uids = torch.as_tensor(data.test_user_ids).long()
     u64, i64 = ue.double()[uids], ie.double()
