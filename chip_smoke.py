@@ -68,18 +68,22 @@ temp 0.2), ELL layout (SELFREC_TPU_DENSE=0), and LightGCN on it:
 5. K2 kernel phase: K2 against its plain version at rtol/atol 2e-5 on two
    ragged layouts (K 4 and 16, one row spanning many virtual rows), on the
    yelp unified layout at P = 1 (D 64, f32 and bf16 rows) and on SGL's
-   packed template at P = 3 (D 64 x 3), and exactly on the Mosaic gather
-   probe's case (scripts/probe_mosaic_gather.py: n 256, D 128, K = 1, unit
-   weights). Times the kernel (one call at a time, and back to back),
-   the plain version and ``torch.sparse.mm`` over the same CSR matrices
-   (one call per pass; a yardstick the port never calls), and computes
+   packed template at P = 3 (D 64 x 3; the epoch's slot weights, which
+   over both layouts must equal ell_weights of the epoch's weight stack
+   bit for bit), and exactly on the Mosaic gather probe's case
+   (scripts/probe_mosaic_gather.py: n 256, D 128, K = 1, unit weights).
+   Times the kernel (one call at a time, and back to back), the plain
+   version and ``torch.sparse.mm`` over the same CSR matrices (one call
+   per pass; a yardstick the port never calls), and computes
    each bound.
 6. reference phase: on a small graph, SGL's ELL arm on the card agrees with
    the CPU (same weights, keep masks and batch): embeddings, loss, grads
    and top-20 lists.
 7. train phase: 50 steps of epoch 0 after epoch_setup; finite losses and
    exactly 4 K2 launches a step (2 hops forward and backward, the three
-   views packed). Three more (graphed) steps under the profiler.
+   views packed), and the slot weights scattered once a layout over the
+   epoch (its epoch_setup; warm-up, capture and replays none). Three more
+   (graphed) steps under the profiler.
 8. eval phase: compute_embeddings and one fast_evaluation; K2 launches
    n_layer times.
 9. LightGCN (n_layer 3) on the ELL layout: 10 steps, 6 K2 launches a step.
@@ -604,9 +608,14 @@ def k2_phase(sgl):
     x1 = torch.randn((n, 64), generator=gen, device="cuda")
     rows.append(k2_case("yelp", fwd, w1, x1))
     rows.append(k2_case("yelp", fwd, w1.to(torch.bfloat16).float(), x1.to(torch.bfloat16)))
-    tmpl = sgl._view_template.fwd
-    w3 = ell_weights(tmpl, torch.stack([sgl._w_clean, sgl.aux["w1"], sgl.aux["w2"]]))
-    rows.append(k2_case("yelp packed", tmpl, w3,
+    tmpl = sgl._view_template
+    stack = torch.stack([sgl._w_clean, sgl.aux["w1"], sgl.aux["w2"]])
+    for got, layout in zip(sgl._slots, (tmpl.fwd, tmpl.bwd)):
+        if not torch.equal(got, ell_weights(layout, stack)):
+            raise RuntimeError("SGL's slot weights differ from ell_weights of the epoch's stack")
+    log(f"[k2] SGL ELL: the epoch's slot weights {tuple(sgl._slots.fwd.shape)} and "
+        f"{tuple(sgl._slots.bwd.shape)} equal ell_weights of its stack")
+    rows.append(k2_case("yelp packed", tmpl.fwd, sgl._slots.fwd,
                         torch.randn((n, 192), generator=gen, device="cuda")))
     # scripts/probe_mosaic_gather.py's case: table[idx], n 256, D 128
     table = torch.as_tensor(np.random.default_rng(0).normal(size=(256, 128)),
@@ -3045,7 +3054,7 @@ def main():
     from selfrec_tpu_torch.models.graph.itemknn import ItemKNN
     from selfrec_tpu_torch.models.graph.userknn import UserKNN
     from selfrec_tpu_torch.models.graph.xsimgcl import XSimGCL
-    from selfrec_tpu_torch.ops import cuda_build, dense_dual, ell_gather, ranking
+    from selfrec_tpu_torch.ops import cuda_build, dense_dual, ell_gather, ranking, spmm_ell
     from selfrec_tpu_torch.ops.graph import NormAdj
     from selfrec_tpu_torch.ops.spmm_ell import EllAdj
     from selfrec_tpu_torch.utils.synth import synth_graph_mapped
@@ -3112,9 +3121,27 @@ def main():
     torch.cuda.empty_cache()
     sgl_reference_phase()
     k2_paths = {}
-    k2_paths["sgl_ell_train"], _ = train_path(
-        "SGL ELL", model, ell_gather.ell_gather_sum, N_TRAIN_BATCHES,
-        per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
+    scattered = []  # the layouts that ell_weights scatters onto
+    scatter = spmm_ell.ell_weights
+
+    def counted(layout, edge_w):
+        scattered.append(layout)
+        return scatter(layout, edge_w)
+
+    spmm_ell.ell_weights = counted
+    try:
+        k2_paths["sgl_ell_train"], _ = train_path(
+            "SGL ELL", model, ell_gather.ell_gather_sum, N_TRAIN_BATCHES,
+            per_step=2 * model.n_layers, profile_steps=N_PROFILE_STEPS)
+    finally:
+        spmm_ell.ell_weights = scatter
+    tmpl = model._view_template
+    if [id(layout) for layout in scattered] != [id(tmpl.fwd), id(tmpl.bwd)]:
+        raise RuntimeError(f"SGL ELL train: {len(scattered)} slot-weight scatters over one "
+                           f"epoch's set-up, warm-up, capture and replays, expected the "
+                           f"template's two in its set-up")
+    log("[k2] SGL ELL train: the slot weights scattered once a layout over the epoch "
+        "(its set-up; warm-up, capture and replays none)")
     k2_paths["sgl_ell_eval"] = eval_path("SGL ELL", model, ell_gather.ell_gather_sum)
     free(model)
     del model

@@ -16,7 +16,9 @@ same masks. Two arms, chosen by the adjacency's layout:
 
 - ELL: the clean graph and both dropped views share one template layout
   and differ only in weights, so the three chains run as ONE packed
-  width-3D chain, one K2 launch per hop forward and one backward;
+  width-3D chain, one K2 launch per hop forward and one backward. The
+  chains' slot weights over both directions of the template are built
+  once an epoch, with the views, and every step reads them as they are;
 - dense: each view is a new int8-factored block per epoch
   (``DenseAdj.refactor_view``), propagated like the clean block (K1 in
   every matmul mode).
@@ -27,7 +29,8 @@ the ELL template is a ``HaloAdj`` reweighted per epoch.
 Spans: the template's build is part of ``setup.adj`` (and counted as a
 ``layout.*``); each epoch's views are ``views.keep`` (the host draws and
 their copy) and ``views.weights`` (the device work, also a device span
-under a profiler).
+under a profiler; on the ELL template it also builds the epoch's slot
+weights).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from selfrec_tpu_torch.ops.graph import (bipartite_renorm_weights,
                                          lightgcn_propagate, spmm, spmm_packed)
 from selfrec_tpu_torch.ops.sampling import unique_with_mask
 from selfrec_tpu_torch.ops.spmm_dense import DenseAdj, adj_edge_perm
+from selfrec_tpu_torch.ops.spmm_ell import EllAdj, packed_slot_weights
 from selfrec_tpu_torch.parallel.dense_shard import ShardedDenseAdj
 from selfrec_tpu_torch.utils import trace
 
@@ -63,6 +67,7 @@ class SGL(TorchGraphRecommender):
         self._edge_items_dev = torch.as_tensor(self.data.edge_items, device=self.device)
         self._view_template = None
         self._w_clean = None
+        self._slots = None  # the ELL template's SlotWeights of the epoch
         self._view1 = None
         self._view2 = None
         with trace.span("setup.adj"):
@@ -117,7 +122,9 @@ class SGL(TorchGraphRecommender):
     def epoch_setup(self, epoch):
         """The epoch's two dropped views: their keep masks drawn on the host
         and copied over (span ``views.keep``), then their blocks or weights
-        made on the device (span and device span ``views.weights``)."""
+        made on the device (span and device span ``views.weights``). On an
+        ELL template that also builds the three chains' slot weights
+        (``_slots``), which every step of the epoch reads."""
         rng = self.epoch_rng(epoch, stream=1)
         with trace.span("views.keep"):
             keep1, keep2 = self._keep(rng), self._keep(rng)
@@ -126,7 +133,11 @@ class SGL(TorchGraphRecommender):
                 self._view1 = self.adj.refactor_view(keep1[self._edge_perm])
                 self._view2 = self.adj.refactor_view(keep2[self._edge_perm])
                 return {}
-            return {"w1": self._view_weights(keep1), "w2": self._view_weights(keep2)}
+            aux = {"w1": self._view_weights(keep1), "w2": self._view_weights(keep2)}
+            if isinstance(self._view_template, EllAdj):
+                self._slots = packed_slot_weights(self._view_template, torch.stack(
+                    [self._w_clean, aux["w1"], aux["w2"]]))
+            return aux
 
     def _view_weights(self, keep):
         return bipartite_renorm_weights(self._edge_users_dev, self._edge_items_dev,
@@ -146,11 +157,14 @@ class SGL(TorchGraphRecommender):
                     acc = acc + x
                 outs.append(acc / (self.n_layers + 1))
             return outs
-        w_stack = torch.stack([self._w_clean, aux["w1"], aux["w2"]])
+        if isinstance(self._view_template, EllAdj):
+            w = self._slots
+        else:  # HaloAdj: the per-edge weights
+            w = torch.stack([self._w_clean, aux["w1"], aux["w2"]])
         x = torch.cat([ego, ego, ego], dim=1)
         acc = x
         for _ in range(self.n_layers):
-            x = spmm_packed(self._view_template, w_stack, x, 3)
+            x = spmm_packed(self._view_template, w, x, 3)
             acc = acc + x
         out = acc / (self.n_layers + 1)
         d = self.emb_size

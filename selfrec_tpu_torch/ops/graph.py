@@ -85,15 +85,17 @@ def spmm(adj, x: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"spmm over {type(adj).__name__}: not an adjacency layout")
 
 
-def spmm_packed(adj, w_edge_stack: torch.Tensor, x: torch.Tensor,
-                n_passes: int) -> torch.Tensor:
+def spmm_packed(adj, w, x: torch.Tensor, n_passes: int) -> torch.Tensor:
     """P propagation passes sharing one layout, packed into one gather chain
-    (x is (n, P*D); ``w_edge_stack`` (P, E) per-pass weights in original
-    edge order): one K2 launch per hop for all P passes (graph.py:92-104)."""
+    (x is (n, P*D)): one K2 launch per hop for all P passes
+    (graph.py:92-104). ``w`` is the (P, E) per-pass weights in original
+    edge order, or on an ``EllAdj`` the ``SlotWeights`` built from them
+    once (``spmm_ell.packed_slot_weights``), which the call reads as they
+    are."""
     if isinstance(adj, EllAdj):
-        return ell_spmm_packed(adj, w_edge_stack, x, n_passes)
+        return ell_spmm_packed(adj, w, x, n_passes)
     if isinstance(adj, HaloAdj):
-        return halo_spmm_packed(adj, w_edge_stack, x, n_passes)
+        return halo_spmm_packed(adj, w, x, n_passes)
     raise TypeError(f"packed SpMM needs a shared layout, got {type(adj)}")
 
 

@@ -10,7 +10,10 @@ precomputed transpose layout; no scatter ever appears.
 
 Weights are a separate input, so reweighted adjacencies (SGL's per-epoch
 dropped views) reuse the static layout: ``edge_slots`` maps original edge
-order -> flat slot, and new weights are one scatter of E scalars.
+order -> flat slot, and new weights are one scatter of E scalars. A packed
+propagation takes both directions' slot weights (:class:`SlotWeights`),
+built once for as long as its edge weights hold (SGL: once an epoch), or
+a (P, E) stack that the call scatters (BUIR's per-step draws).
 Weight gradients are zero: adjacency weights are graph constants.
 
 The layout is built on the host with numpy, identical to the JAX
@@ -217,29 +220,61 @@ def ell_spmm(adj: EllAdj, x: torch.Tensor) -> torch.Tensor:
     return _EllSpmm.apply(x, adj)
 
 
+class SlotWeights(NamedTuple):
+    """A packed propagation's slot weights over both layouts of an
+    :class:`EllAdj`: (P, V, K) over ``fwd`` and (P, V', K) over ``bwd``."""
+
+    fwd: torch.Tensor
+    bwd: torch.Tensor
+
+
+def packed_slot_weights(adj: EllAdj, w_edge_stack: torch.Tensor) -> SlotWeights:
+    """Both layouts' (P, V, K) slot weights from per-pass edge weights
+    (P, E) in ORIGINAL edge order: two scatters. Weights held fixed (SGL's
+    three chains over an epoch) are built once and passed to every
+    :func:`ell_spmm_packed`."""
+    return SlotWeights(ell_weights(adj.fwd, w_edge_stack), ell_weights(adj.bwd, w_edge_stack))
+
+
 class _EllSpmmPacked(torch.autograd.Function):
+    """K2 over ``adj.fwd`` with the (P, V, K) ``w_fwd``; its backward K2
+    over ``adj.bwd`` with ``w_bwd``: the (P, V', K) block, or the (P, E)
+    edge weights that the backward scatters into it."""
+
     @staticmethod
-    def forward(ctx, x, w_edge_stack, adj):
+    def forward(ctx, x, w_fwd, w_bwd, adj):
         ctx.adj = adj
-        ctx.save_for_backward(w_edge_stack)
-        return _apply(adj.fwd, ell_weights(adj.fwd, w_edge_stack), x)
+        ctx.fwd_shape = w_fwd.shape
+        ctx.save_for_backward(w_bwd)
+        return _apply(adj.fwd, w_fwd, x)
 
     @staticmethod
     def backward(ctx, g):
-        (w_edge_stack,) = ctx.saved_tensors
-        dx = _apply(ctx.adj.bwd, ell_weights(ctx.adj.bwd, w_edge_stack), g)
-        dw = torch.zeros_like(w_edge_stack) if ctx.needs_input_grad[1] else None
-        return dx, dw, None
+        (w_bwd,) = ctx.saved_tensors
+        slots = w_bwd if w_bwd.dim() == 3 else ell_weights(ctx.adj.bwd, w_bwd)
+        dx = _apply(ctx.adj.bwd, slots, g)
+        # weights are graph constants: weights that ask get zeros
+        need_fwd, need_bwd = ctx.needs_input_grad[1:3]
+        dw_fwd = w_bwd.new_zeros(ctx.fwd_shape) if need_fwd else None
+        dw_bwd = torch.zeros_like(w_bwd) if need_bwd else None
+        return dx, dw_fwd, dw_bwd, None
 
 
-def ell_spmm_packed(adj: EllAdj, w_edge_stack: torch.Tensor, x: torch.Tensor,
-                    n_passes: int) -> torch.Tensor:
+def ell_spmm_packed(adj: EllAdj, w, x: torch.Tensor, n_passes: int) -> torch.Tensor:
     """P-pass packed SpMM over one shared layout (spmm_ell.py:303-332).
 
-    ``w_edge_stack`` (P, E) per-pass weights in ORIGINAL edge order (the
-    template's); ``x`` (n, P*D). One K2 launch covers all P passes. The
-    gradient flows to ``x`` only (weights are graph constants)."""
-    if w_edge_stack.dim() != 2 or w_edge_stack.shape[0] != n_passes:
-        raise ValueError(f"w_edge_stack {tuple(w_edge_stack.shape)} is not "
-                         f"({n_passes}, E)")
-    return _EllSpmmPacked.apply(x, w_edge_stack, adj)
+    ``w`` is the passes' :class:`SlotWeights` built beforehand
+    (:func:`packed_slot_weights`), read as they are, or their (P, E) edge
+    weights in ORIGINAL edge order (the template's), which the call
+    scatters: the forward block in the forward, the backward block in the
+    backward from the stack it saves; ``x``
+    (n, P*D). One K2 launch covers all P passes. The gradient flows to
+    ``x`` only (weights are graph constants)."""
+    if isinstance(w, torch.Tensor):
+        if w.dim() != 2 or w.shape[0] != n_passes:
+            raise ValueError(f"w_edge_stack {tuple(w.shape)} is not ({n_passes}, E)")
+        return _EllSpmmPacked.apply(x, ell_weights(adj.fwd, w.detach()), w, adj)
+    if w.fwd.shape[0] != n_passes or w.bwd.shape[0] != n_passes:
+        raise ValueError(f"slot weights {tuple(w.fwd.shape)} / {tuple(w.bwd.shape)} "
+                         f"do not hold {n_passes} passes")
+    return _EllSpmmPacked.apply(x, w.fwd, w.bwd, adj)

@@ -32,6 +32,7 @@ from selfrec_tpu_torch.config import ModelConf
 from selfrec_tpu_torch.models.graph.sgl import SGL
 from selfrec_tpu_torch.ops import graph as t_graph
 from selfrec_tpu_torch.ops.spmm_dense import DenseAdj
+from selfrec_tpu_torch.ops import spmm_ell as t_ell
 from selfrec_tpu_torch.ops.spmm_ell import EllAdj
 
 EMB, BATCH, LR = 16, 64, 0.01
@@ -139,6 +140,93 @@ def test_one_step_matches_jax(monkeypatch, tiny_graph_dataset, arm):
     for k in jg:
         np.testing.assert_allclose(tg[k], jg[k], rtol=1e-4, atol=1e-7)
         np.testing.assert_allclose(tp[k], jp[k], rtol=0, atol=1e-6)
+
+
+def _stack_route(self, params, aux):
+    """``SGL._propagated_views`` handing the packed product the (3, E)
+    weight stack each step, so that every call builds its slot weights."""
+    ego = self._ego(params)
+    w_stack = torch.stack([self._w_clean, aux["w1"], aux["w2"]])
+    x = torch.cat([ego, ego, ego], dim=1)
+    acc = x
+    for _ in range(self.n_layers):
+        x = t_graph.spmm_packed(self._view_template, w_stack, x, 3)
+        acc = acc + x
+    out = acc / (self.n_layers + 1)
+    d = self.emb_size
+    return out[:, :d], out[:, d: 2 * d], out[:, 2 * d:]
+
+
+def _ell_epochs(monkeypatch, dataset, n_epochs=2, n_steps=3):
+    """A fresh ELL-arm SGL trained ``n_steps`` steps in each of ``n_epochs``
+    epochs through the trainer's runner: (model, losses, params after each
+    epoch, each epoch's aux and slot weights, the count of ``ell_weights``
+    scatters after each epoch's set-up and after its steps)."""
+    monkeypatch.setenv("SELFREC_TPU_DENSE", "0")
+    train, test = dataset
+    tm = SGL(ModelConf(_conf_dict()), train, test, device="cpu")
+    tm.build()
+    assert isinstance(tm._view_template, EllAdj)
+    scattered = []
+
+    def counted(layout, edge_w, scatter=t_ell.ell_weights):
+        scattered.append(layout)
+        return scatter(layout, edge_w)
+
+    losses, params, auxes, slots, built = [], [], [], [], []
+    with monkeypatch.context() as m:
+        m.setattr(t_ell, "ell_weights", counted)
+        for epoch in range(n_epochs):
+            users, items, masks = tm.epoch_batches(epoch)
+            assert users.shape[0] >= n_steps
+            tm.begin_epoch(epoch)
+            built.append(len(scattered))
+            losses.append(tm.train_batches(users[:n_steps], items[:n_steps],
+                                           masks[:n_steps]))
+            built.append(len(scattered))
+            params.append({k: v.detach().clone() for k, v in tm.params.items()})
+            auxes.append(dict(tm.aux))
+            slots.append(tm._slots)
+    return tm, losses, params, (auxes, slots), built
+
+
+def test_ell_steps_on_prebuilt_slot_weights_equal_the_stack_route(monkeypatch,
+                                                                  tiny_graph_dataset):
+    """Two epochs of three steps on the slot weights that ``epoch_setup``
+    built: losses and parameters equal, bit for bit, a run whose
+    ``_propagated_views`` hands each step the (3, E) stack."""
+    _, losses, params, _, _ = _ell_epochs(monkeypatch, tiny_graph_dataset)
+    monkeypatch.setattr(SGL, "_propagated_views", _stack_route)
+    _, want_losses, want_params, _, want_built = _ell_epochs(monkeypatch, tiny_graph_dataset)
+    assert want_built[-1] > 4  # the stack route scatters in every call
+    for got, want in zip(losses, want_losses):
+        assert torch.equal(got, want)
+    for got, want in zip(params, want_params):
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert not torch.equal(params[0]["user_emb"], params[1]["user_emb"])
+
+
+def test_ell_slot_weights_are_each_epochs_stack(monkeypatch, tiny_graph_dataset):
+    """Each epoch's slot weights are ``ell_weights`` of that epoch's
+    (clean, view 1, view 2) stack over the template's two layouts, hold no
+    autograd history, change with the epoch, and stay out of the aux."""
+    tm, _, _, (auxes, slots), _ = _ell_epochs(monkeypatch, tiny_graph_dataset)
+    tmpl = tm._view_template
+    for epoch, (aux, pair) in enumerate(zip(auxes, slots)):
+        assert set(aux) == {"w1", "w2"}
+        stack = torch.stack([tm._w_clean, aux["w1"], aux["w2"]])
+        for got, first, layout in zip(pair, slots[0], (tmpl.fwd, tmpl.bwd)):
+            assert not got.requires_grad
+            assert torch.equal(got, t_ell.ell_weights(layout, stack))
+            assert epoch == 0 or not torch.equal(got, first)
+
+
+def test_ell_slot_weights_are_built_once_an_epoch(monkeypatch, tiny_graph_dataset):
+    """Each epoch's set-up scatters one block per layout of the template,
+    and its steps (the runner's warm-up and steps) scatter none."""
+    *_, built = _ell_epochs(monkeypatch, tiny_graph_dataset)
+    assert built == [2, 2, 4, 4]
 
 
 @pytest.mark.parametrize("arm", ["ell", "dense"])

@@ -93,7 +93,14 @@ def test_ell_spmm_values_and_grads_match_jax(shape, k):
     np.testing.assert_allclose(_np(xt.grad), np.asarray(jg), **TOL)
 
 
-def test_ell_spmm_packed_matches_jax_with_zero_weight_grad():
+@pytest.mark.parametrize("form", ["stack", "prebuilt"])
+def test_ell_spmm_packed_matches_jax_with_zero_weight_grad(monkeypatch, form):
+    """The packed product from a (P, E) weight stack, which the call
+    scatters (the forward's block in the forward, the backward's in the
+    backward, only the first under no_grad), and from the slot weights
+    built beforehand, which it reads as they are: one block per layout
+    either way, the same values as JAX, and a zero gradient for the
+    stack."""
     n, p, d = 150, 3, 16
     src, dst, _ = _graph("power_law", n, n, seed=4)
     rng = np.random.default_rng(5)
@@ -111,9 +118,28 @@ def test_ell_spmm_packed_matches_jax_with_zero_weight_grad():
     jgw, jgx = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(w_stack), jnp.asarray(x))
     assert t_graph.supports_packed(tadj) and jax_graph.supports_packed(jadj)
     wt = torch.from_numpy(w_stack).requires_grad_(True)
+    want = [t_ell.ell_weights(layout, wt.detach()) for layout in (tadj.fwd, tadj.bwd)]
+    scattered = []  # the layouts that ell_weights scatters onto, in order
+
+    def counted(layout, edge_w, scatter=t_ell.ell_weights):
+        scattered.append(layout)
+        return scatter(layout, edge_w)
+
+    monkeypatch.setattr(t_ell, "ell_weights", counted)
+    w = wt
+    if form == "prebuilt":
+        w = t_ell.packed_slot_weights(tadj, wt)
+        for got, ref in zip(w, want):
+            assert torch.equal(got, ref)
+        assert w.fwd.shape != w.bwd.shape  # V of the transpose differs
     xt = torch.from_numpy(x).requires_grad_(True)
-    to = t_graph.spmm_packed(tadj, wt, xt, p)
+    to = t_graph.spmm_packed(tadj, w, xt, p)
     torch.sum(to * torch.from_numpy(wout)).backward()
+    assert len(scattered) == 2
+    assert scattered[0] is tadj.fwd and scattered[1] is tadj.bwd
+    with torch.no_grad():
+        assert torch.equal(t_graph.spmm_packed(tadj, w, xt, p), to.detach())
+    assert len(scattered) == (3 if form == "stack" else 2)
     np.testing.assert_allclose(_np(to), jo, **TOL)
     np.testing.assert_allclose(_np(xt.grad), np.asarray(jgx), **TOL)
     assert not np.any(np.asarray(jgw)) and not torch.any(wt.grad)
